@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--songs 8] [--seconds 300] [--profile]
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds every CUDA kernel of `bliss_tpu_torch/csrc` (one nvcc each, in
+   parallel) into `bliss_tpu_torch/build/`;
+3. makes a batch of synthetic songs from `--seed` (tones, chords, clicks
+   and noise), 8 x 5 minutes by default, padded to `bucket_length`;
+4. holds each kernel against its plain PyTorch version on the card, at
+   the shapes the analysis gives it, and times both;
+5. drives `analyze_batch` (V2, then V1) on the card with the launch
+   counts reset just before, fails if any kernel did not run, and times
+   each descriptor stage alone (`--profile` adds a torch.profiler trace
+   of one batch: device busy share and the longest-running kernels);
+6. holds the card's f32 vectors against the port's CPU f64 path: on
+   tests/data/piano.wav (<= 1e-4 per feature, and against the pinned
+   PIANO_V2) and on one synthetic song (<= 2e-2, same dominant chroma).
+
+Prints one JSON line of per-kernel numbers, the nvidia-smi line, then the
+result line. Any failed phase exits non-zero. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+import wave
+
+import numpy as np
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent
+
+#: The pinned V2 vector of tests/data/piano.wav (samples / 32768 as f32),
+#: computed by the JAX package's CPU f64 path and held by
+#: tests/test_torch_analyzer.py.
+PIANO_V2 = [
+    0.186997, -0.9421521, -0.8771694, -0.9097559, -0.84661067,
+    -0.8806664, -0.965025, -0.95719546, 0.701856, 0.7115821,
+    -0.110660076, -0.15158701, -0.21284789, -0.21377605, -0.20373529,
+    -0.21420372, 0.0001308918, 0.00009226799, -0.000012934208,
+    -0.00021022558, -0.47165334, -0.6606562, 0.15777446,
+]
+
+#: Card peaks used for the bounds (NVIDIA H100 SXM data sheet): HBM rate
+#: and the f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# synthetic songs
+# ---------------------------------------------------------------------------
+
+
+def synth_song(rng: np.random.Generator, n: int, sr: int = 22050) -> np.ndarray:
+    """Tones, a chord progression, a click track and noise, `n` samples."""
+    t = np.arange(n) / sr
+    x = np.zeros(n)
+    # chords: a triad every 2-4 s with 3 harmonics per note
+    pos = 0
+    while pos < n:
+        dur = int(sr * rng.uniform(2.0, 4.0))
+        root = 110.0 * 2.0 ** (rng.integers(0, 24) / 12.0)
+        seg = slice(pos, min(pos + dur, n))
+        tt = t[seg] - t[pos]
+        env = np.exp(-tt * rng.uniform(0.3, 1.5))
+        for semis in (0, rng.choice([3, 4]), 7):
+            f = root * 2.0 ** (semis / 12.0)
+            for h in (1, 2, 3):
+                x[seg] += 0.08 / h * env * np.sin(2 * np.pi * f * h * tt + rng.uniform(0, 6.3))
+        pos += dur
+    # a melody of pure tones
+    pos = 0
+    while pos < n:
+        dur = int(sr * rng.uniform(0.2, 0.6))
+        f = 440.0 * 2.0 ** (rng.integers(-12, 13) / 12.0)
+        seg = slice(pos, min(pos + dur, n))
+        x[seg] += 0.05 * np.sin(2 * np.pi * f * (t[seg] - t[pos]))
+        pos += dur
+    # clicks at a steady tempo
+    bpm = rng.uniform(80.0, 160.0)
+    period = int(sr * 60.0 / bpm)
+    click = 0.6 * np.exp(-np.arange(400) / 60.0) * rng.standard_normal(400)
+    for start in range(int(rng.integers(0, period)), n - 400, period):
+        x[start : start + 400] += click
+    x += 0.01 * rng.standard_normal(n)
+    return (x / max(1.0, np.abs(x).max())).astype(np.float32)
+
+
+def piano_samples() -> np.ndarray:
+    with wave.open(str(REPO / "tests" / "data" / "piano.wav")) as w:
+        if (w.getnchannels(), w.getsampwidth(), w.getframerate()) != (1, 2, 22050):
+            fail("piano.wav is not 22.05 kHz mono s16")
+        raw = w.readframes(w.getnframes())
+    return (np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of `fn()` over `reps` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rfft_ops(n: int) -> float:
+    """Operations of an n-point real FFT, the conventional 2.5 n log2 n."""
+    return 2.5 * n * math.log2(n)
+
+
+def stage_breakdown(x, lens, frame_mask, n_hops: int) -> None:
+    """Warm host-clock time of each descriptor stage alone on the batch,
+    synchronized before and after."""
+    from bliss_tpu_torch.models import chroma as CH
+    from bliss_tpu_torch.models import loudness as LD
+    from bliss_tpu_torch.models import tempo as TP
+    from bliss_tpu_torch.models import timbral as TB
+    from bliss_tpu_torch.ops.dft_kernels import specflux
+    from bliss_tpu_torch.ops.spectral import stft
+    from bliss_tpu_torch.ops.windows import n_frames_strided
+    from bliss_tpu_torch.tables import default_tables
+
+    dev = x.device
+    tab = default_tables().on(dev)
+    xs = torch.where(torch.arange(x.shape[1], device=dev) < lens.unsqueeze(-1), x, 0.0)
+    thresh = TP.thresholded_series(specflux(xs, n_hops))
+    silent = TP.silence_flags_blocked(xs, n_hops)
+    consts = TP._bt_constants(dev, tab)
+    h_valid = n_frames_strided(lens, 512, 256)
+    spectrum = stft(xs, 8192, 2205, lens, frame_mask.shape[1])
+
+    def wall_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    stages = {
+        "tempo": wall_ms(lambda: TP.tempo_feature(xs, lens, tab)),
+        "tempo.beat_tracker": wall_ms(lambda: TP.tempo_from_series(thresh, silent, h_valid, consts)),
+        "timbral+zcr": wall_ms(lambda: (TB.spectral_features(xs, lens, tab), TB.zcr_feature(xs, lens))),
+        "loudness": wall_ms(lambda: LD.loudness_features(xs, lens)),
+        "chroma": wall_ms(lambda: CH.chroma_features(xs, lens, 2, torch.float32, tab)),
+        "chroma.stft": wall_ms(lambda: stft(xs, 8192, 2205, lens, frame_mask.shape[1])),
+        "chroma.tuning": wall_ms(lambda: CH._estimate_tuning_fused(spectrum, frame_mask, 8192)),
+    }
+    print("stages (ms, warm, each alone): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+
+
+def profile_batch(batch, lengths) -> None:
+    """torch.profiler over one warm V2 batch: device busy share and the
+    kernels that hold the device longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bliss_tpu_torch.models.analyzer import analyze_batch
+
+    analyze_batch(batch, lengths, version=2, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        analyze_batch(batch, lengths, version=2, device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((dt, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    print(f"profile: wall {wall / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+          f"({100 * busy / wall:.1f}%), {sum(r[1] for r in rows)} device ops", flush=True)
+    for dt, count, key in sorted(rows, reverse=True)[:15]:
+        print(f"  {dt / 1e3:9.3f} ms {count:7d}x {key[:90]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--songs", type=int, default=8)
+    ap.add_argument("--seconds", type=float, default=300.0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one warm batch with torch.profiler")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+
+    from bliss_tpu_torch.models import chroma as CH
+    from bliss_tpu_torch.models.analyzer import (
+        analyze_batch,
+        analyze_samples,
+        bucket_length,
+    )
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.ops import dft_kernels as DK
+    from bliss_tpu_torch.ops import tuning_kernels as TK
+    from bliss_tpu_torch.ops.windows import (
+        n_frames_stft,
+        n_frames_strided,
+        reflect_pad_signal,
+    )
+
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    # ---- build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build_all(verbose=True)
+    print(f"build: {len(logs)} kernel sources in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # ---- data ------------------------------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    n = int(round(args.seconds * 22050))
+    tpad = bucket_length(n)
+    batch = np.zeros((args.songs, tpad), np.float32)
+    for i in range(args.songs):
+        batch[i, :n] = synth_song(rng, n)
+    lengths = np.full(args.songs, n, np.int64)
+    print(f"data: {args.songs} songs x {n} samples (buffer {tpad}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    x = torch.as_tensor(batch, device=dev)
+    lens = torch.as_tensor(lengths, device=dev)
+    b = args.songs
+    results = {}
+
+    # ---- kernels vs plain versions, at the main path's shapes ------------
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops, library_ms):
+        bms, by = bound(nbytes, ops)
+        results[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        }
+        print(f"kernel {name}: max_abs_err {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms by {by}, library {library_ms})", flush=True)
+
+    # timbral: [B, F, 5]
+    nf = int(n_frames_strided(tpad, 512, 128))
+    got = DK.timbral_fft(x, nf)
+    want = DK.timbral_fft_plain(x, nf)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[~fin], want[~fin]):
+        fail("timbral_fft: non-finite entries differ from the plain version")
+    diff = torch.where(fin, (got - want).abs(), 0.0)
+    scale = torch.clamp(torch.where(fin, want.abs(), 0.0), min=1e-30)
+    # total, weighted, energy: relative 1e-5; below within +-1 (ties on the
+    # 95% energy line). The log2 sum can sit near 0, so it is held through
+    # the geometric mean exp2(sum / 256) it gives, |d sum| * ln 2 / 256:
+    # that sum weighs every near-silent bin, whose magnitude two different
+    # f32 FFTs round differently (both sit ~3e-6 from f64 on typical
+    # frames, more on the rare frame with a bin near zero), so its limit is
+    # the 1e-4 feature contract; its max and mean are printed.
+    geo = diff[..., 3] * math.log(2.0) / 256
+    rels = {
+        "total": (diff[..., 0] / scale[..., 0]).max().item(),
+        "weighted": (diff[..., 1] / scale[..., 1]).max().item(),
+        "energy": (diff[..., 4] / scale[..., 4]).max().item(),
+    }
+    rel = max(rels.values())
+    below = diff[..., 2].max().item()
+    geo_max = geo.max().item()
+    print(f"  timbral relative errors {rels}, geo_mean max {geo_max:.3g} mean "
+          f"{geo.mean().item():.3g}, below max diff {below}", flush=True)
+    if rel > 1e-5 or below > 1 or geo_max > 1e-4:
+        fail(f"timbral_fft vs plain: relative {rel:.3g} (limit 1e-5), geo_mean "
+             f"{geo_max:.3g} (limit 1e-4), below {below} (limit 1)")
+    record(
+        "timbral_fft", "bliss_tpu_torch/csrc/timbral_fft.cu",
+        "bliss_tpu/ops/pallas_dft.py:195", diff[..., [0, 1, 4]].max().item(),
+        time_ms(lambda: DK.timbral_fft(x, nf), 20),
+        time_ms(lambda: DK.timbral_fft_plain(x, nf), 3),
+        b * tpad * 4 + b * nf * 5 * 4,
+        b * nf * (512 + rfft_ops(512) + 256 * 4 + 256 * 8), None,
+    )
+    del got, want, diff, scale, fin
+
+    # SpecFlux: [B, H]
+    nh = int(n_frames_strided(tpad, 512, 256))
+    got = DK.specflux(x, nh)
+    want = DK.specflux_plain(x, nh)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel = (err.amax(1) / want.abs().amax(1)).max().item()
+    if not torch.isfinite(got).all() or rel > 1e-5:
+        fail(f"specflux vs plain: relative {rel:.3g} of each song's largest onset (limit 1e-5)")
+    record(
+        "specflux", "bliss_tpu_torch/csrc/specflux.cu",
+        "bliss_tpu/ops/pallas_dft.py:501", err.max().item(),
+        time_ms(lambda: DK.specflux(x, nh), 20),
+        time_ms(lambda: DK.specflux_plain(x, nh), 3),
+        b * tpad * 4 + b * nh * 4,
+        b * nh * (512 + rfft_ops(512) + 257 * 4 + 257 * 4), None,
+    )
+    print(f"  specflux relative error {rel:.3g}")
+    del got, want, err
+
+    # chroma STFT: [B, 4097, F]
+    nfc = int(n_frames_stft(tpad, 2205))
+    padded = reflect_pad_signal(x, lengths, 8192)
+    got = DK.ct_stft_mags(padded, 8192, 2205, nfc)
+    want = DK.ct_stft_mags_plain(padded, 8192, 2205, nfc)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel = (err.amax(1) / torch.clamp(want.amax(1), min=1e-30)).max().item()
+    if not torch.isfinite(got).all() or rel > 1e-5:
+        fail(f"ct_stft vs plain: {rel:.3g} of each frame's max (limit 1e-5)")
+    used = padded[:, : (nfc - 1) * 2205 + 8192]
+    hann = torch.hann_window(8192, periodic=True, device=dev)
+
+    def library_stft():
+        return torch.stft(used, 8192, 2205, window=hann, center=False,
+                          return_complex=True).abs()
+
+    record(
+        "ct_stft", "bliss_tpu_torch/csrc/ct_stft.cu",
+        "bliss_tpu/ops/pallas_dft.py:778", err.max().item(),
+        time_ms(lambda: DK.ct_stft_mags(padded, 8192, 2205, nfc), 10),
+        time_ms(lambda: DK.ct_stft_mags_plain(padded, 8192, 2205, nfc), 3),
+        b * padded.shape[1] * 4 + b * nfc * 4097 * 4,
+        b * nfc * (8192 + rfft_ops(8192) + 4097 * 4),
+        time_ms(library_stft, 5),
+    )
+    print(f"  ct_stft relative error {rel:.3g} of the frame max")
+
+    # tuning planes of this batch's spectrum, as the chroma stage builds them
+    frame_mask = torch.arange(nfc, device=dev) < n_frames_stft(lens, 2205).unsqueeze(-1)
+    planes = CH.tuning_planes(got, frame_mask, 8192)
+    del got, want, err, padded
+    o1 = TK.bisect16_pair(planes["plane_hi"], planes["ks"])
+    o1p = TK.bisect16_pair_plain(planes["plane_hi"], planes["ks"])
+    plane_lo, rem, min_c = CH.level2_plane(planes["skey"], planes["ks"], o1)
+    o2 = TK.bisect16_pair(plane_lo, rem)
+    o2p = TK.bisect16_pair_plain(plane_lo, rem)
+    if not (torch.equal(o1, o1p) and torch.equal(o2, o2p)):
+        fail(f"bisect16_pair != plain: {o1.tolist()} {o1p.tolist()} {o2.tolist()} {o2p.tolist()}")
+    n_el = planes["plane_hi"].numel()
+    record(
+        "bisect16_pair", "bliss_tpu_torch/csrc/tuning.cu",
+        "bliss_tpu/ops/pallas_select.py:129", 0.0,
+        time_ms(lambda: TK.bisect16_pair(planes["plane_hi"], planes["ks"]), 20),
+        time_ms(lambda: TK.bisect16_pair_plain(planes["plane_hi"], planes["ks"]), 3),
+        n_el * 2 + b * 6 * 4, n_el, None,
+    )
+    tk = CH.threshold_key(o1, o2, min_c, torch.float32)
+    hist = TK.histogram_threshold_plane(planes["idx8"], planes["skey"], tk, 100)
+    histp = TK.histogram_threshold_plane_plain(planes["idx8"], planes["skey"], tk, 100)
+    if not torch.equal(hist, histp):
+        fail("histogram_threshold_plane != plain")
+    n_valid = int((planes["idx8"] < 100).sum().item())
+    record(
+        "histogram_threshold_plane", "bliss_tpu_torch/csrc/tuning.cu",
+        "bliss_tpu/ops/pallas_hist.py:93", 0.0,
+        time_ms(lambda: TK.histogram_threshold_plane(planes["idx8"], planes["skey"], tk, 100), 20),
+        time_ms(lambda: TK.histogram_threshold_plane_plain(planes["idx8"], planes["skey"], tk, 100), 3),
+        n_el + n_valid * 4 + b * 4 + b * 100 * 4, n_el + 2 * n_valid, None,
+    )
+    print(f"  tuning: {n_valid} peaks in {n_el} plane elements, counts exact")
+    del planes, plane_lo, o1, o1p, o2, o2p, hist, histp
+    torch.cuda.empty_cache()
+
+    # ---- the main path ---------------------------------------------------
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v2 = analyze_batch(batch, lengths, version=2, device="cuda")
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    missing = [k for k in results if launches.get(k, 0) < 1]
+    if missing:
+        fail(f"kernels not launched on the main path: {missing} (counts {launches})")
+    for k in results:
+        results[k]["launches"] = launches[k]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v2b = analyze_batch(batch, lengths, version=2, device="cuda")
+    warm_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    v1 = analyze_batch(batch, lengths, version=1, device="cuda")
+    v1_s = time.perf_counter() - t0
+    print(f"main path V2: {b} x {args.seconds:g} s songs, first {first_s:.3f} s, "
+          f"warm {warm_s:.3f} s = {b / warm_s:.2f} songs/s, peak {peak_gb:.2f} GB; "
+          f"V1 {v1_s:.3f} s; launches {launches} [{card}]", flush=True)
+    if v2.shape != (b, 23) or v1.shape != (b, 20):
+        fail(f"output shapes {v2.shape} {v1.shape}")
+    if not (np.isfinite(v2).all() and np.isfinite(v1).all()):
+        fail("non-finite features")
+    if not np.array_equal(v2, v2b):
+        print(f"  note: V2 repeat differs by {np.abs(v2 - v2b).max():.3g} (atomics order)")
+    if np.abs(v2[:, :10] - v1[:, :10]).max() > 1e-6:
+        fail("V1 and V2 disagree on the shared first 10 features")
+    stage_breakdown(x, lens, frame_mask, nh)
+    if args.profile:
+        profile_batch(batch, lengths)
+
+    # ---- against the CPU f64 path ----------------------------------------
+    piano = piano_samples()
+    gpu = analyze_samples(piano, piano.shape[0], 2, device="cuda").cpu().numpy()
+    cpu = analyze_samples(piano, piano.shape[0], 2, device="cpu").cpu().numpy()
+    d_cpu = np.abs(gpu - cpu).max()
+    d_pin = np.abs(gpu - np.asarray(PIANO_V2, np.float32)).max()
+    print(f"piano.wav: CUDA f32 vs CPU f64 max {d_cpu:.3g}, vs PIANO_V2 max {d_pin:.3g} "
+          f"(limit 1e-4)", flush=True)
+    if d_cpu > 1e-4 or d_pin > 1e-4:
+        fail(f"piano.wav drift: per feature {np.abs(gpu - cpu).tolist()}")
+
+    t0 = time.perf_counter()
+    cpu0 = analyze_samples(batch[0, :n], n, 2, device="cpu").cpu().numpy()
+    d_syn = np.abs(v2[0] - cpu0).max()
+    same_argmax = int(np.argmax(v2[0, 10:])) == int(np.argmax(cpu0[10:]))
+    print(f"synthetic song 0: CUDA f32 vs CPU f64 max {d_syn:.3g} (limit 2e-2), "
+          f"dominant chroma {'agrees' if same_argmax else 'DIFFERS'} "
+          f"(CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
+    if d_syn > 2e-2 or not same_argmax:
+        fail("synthetic song drift")
+
+    print(json.dumps({"kernels": list(results.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,108 @@
+"""The port stands alone: no file of bliss_tpu_torch/ nor chip_smoke.py
+imports JAX or the JAX package, the entry points never fall back from the
+card to the CPU on their own, and every kernel has its CUDA source."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "bliss_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "bliss_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_forbidden_rule():
+    assert _forbidden("jax.numpy") and _forbidden("bliss_tpu.ops.windows")
+    assert not _forbidden("bliss_tpu_torch.ops") and not _forbidden("torch")
+
+
+def test_no_environment_switches():
+    """No environment variable turns a kernel off or picks a path."""
+    for path in PORT_FILES:
+        assert "environ" not in path.read_text(), path
+
+
+@pytest.mark.parametrize("entry", ["analyze_samples", "build_analyzer", "analyze_batch", "song"])
+def test_default_device_raises_without_cuda(monkeypatch, entry):
+    from bliss_tpu_torch import Song
+    from bliss_tpu_torch.models import analyzer as TA
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros(20000, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "analyze_samples":
+            TA.analyze_samples(x, x.shape[0])
+        elif entry == "build_analyzer":
+            TA.build_analyzer()(x)
+        elif entry == "analyze_batch":
+            TA.analyze_batch(x[None], [x.shape[0]])
+        else:
+            Song.analyze(x)
+
+
+def test_cuda_path_is_f32_only():
+    from bliss_tpu_torch.models.analyzer import _resolve_dtype
+
+    assert _resolve_dtype(torch.device("cpu"), None) == torch.float64
+    assert _resolve_dtype(torch.device("cuda"), None) == torch.float32
+    with pytest.raises(ValueError):
+        _resolve_dtype(torch.device("cuda"), torch.float64)
+
+
+@pytest.mark.parametrize(
+    "source,replaces",
+    [
+        ("timbral_fft.cu", "pallas_dft.py:_make_timbral_fft_kernel"),
+        ("specflux.cu", "pallas_dft.py:_make_specflux_kernel"),
+        ("ct_stft.cu", "pallas_dft.py:_make_ct_fused_kernel"),
+        ("tuning.cu", "pallas_select.py:"),
+        ("tuning.cu", "pallas_hist.py:"),
+    ],
+)
+def test_kernel_sources_name_what_they_replace(source, replaces):
+    text = (REPO / "bliss_tpu_torch" / "csrc" / source).read_text()
+    assert replaces in text
+    assert "Bound on the card" in text
+
+
+def _run_smoke(cwd: pathlib.Path):
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=300, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""},
+    )
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
