@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of bliss_tpu's analysis path.
 
-Decoded 22.05 kHz mono PCM goes in, the bliss feature vector (23
-features for Version2, 20 for Version1) comes out, on an NVIDIA GPU
-through hand-written CUDA kernels (`csrc/`), or on the CPU through each
-kernel's plain PyTorch version when the caller asks for `device="cpu"`.
+Audio files (`io/`: the FFI-free decoders and the batch driver
+`io.batch.analyze_paths_batched`) or decoded 22.05 kHz mono PCM go in,
+the bliss feature vector (23 features for Version2, 20 for Version1)
+comes out, on an NVIDIA GPU through hand-written CUDA kernels (`csrc/`),
+or on the CPU through each kernel's plain PyTorch version when the caller
+asks for `device="cpu"`.
 
 The package imports torch and numpy only; it keeps its own copies of the
 host-side constants it needs.
@@ -23,12 +25,14 @@ from .features import (  # noqa: E402
     SAMPLE_RATE,
     FeaturesVersion,
 )
-from .song import Analysis, Song  # noqa: E402
+from .song import Analysis, AnalysisOptions, CueInfo, Song  # noqa: E402
 
 __all__ = [
     "Analysis",
     "AnalysisError",
+    "AnalysisOptions",
     "BlissError",
+    "CueInfo",
     "DecodingError",
     "FeaturesVersion",
     "NUMBER_FEATURES",

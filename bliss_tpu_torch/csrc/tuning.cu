@@ -1,5 +1,6 @@
-// Exact integer passes of the fused tuning estimator (models/chroma.py
-// `_estimate_tuning_fused`, src/chroma.rs:334-391).
+// Exact integer passes of the tuning estimator (models/chroma.py,
+// src/chroma.rs:334-391): the fused route (1, 2) for buckets whose tuning
+// plane fits the reference's budget, the unfused route (3, 4) above it.
 //
 // 1. bisect16_pair replaces bliss_tpu/ops/pallas_select.py:
 //    _make_bisect16_pair_kernel (via bisect16_pair). Over an i16 plane
@@ -16,12 +17,29 @@
 //    of an i8 tuning-bin plane where the i32 magnitude key is >= tk.
 //    Per-block shared-memory counters, then integer atomics into the output.
 //
-// Both are exact integers, so the order of the atomics does not matter.
+// 3. bisect8 replaces bliss_tpu/ops/pallas_select.py:39 _make_bisect8_kernel
+//    (via _bisect8 and masked_quantile_midpoint_radix). Over an int8 plane of
+//    one key byte per element (u8 offset by -128; sentinel 127 = byte 0xFF
+//    for excluded elements) it finds the bucket b = the smallest v <= 0xFE
+//    with count(<= v) >= k + 1, else 0xFF, and below = count(<= b - 1). A
+//    valid byte 0xFF shares its value with the sentinel; like the TPU
+//    kernel, the count never includes v = 0xFF, so such an element is
+//    reached as the 0xFF fallback and never counted in `below`. The TPU's
+//    eight bisection passes over a VMEM plane become one counting pass: a
+//    256-bucket per-song histogram in shared memory, then a one-block scan.
+// 4. hist_int replaces bliss_tpu/ops/pallas_hist.py:45 _make_kernel (via
+//    histogram_int_plane): counts of idx == v for v in [0, n_bins) over an
+//    int32 plane; other values (the caller's sentinel n_bins) are ignored.
+//    Per-block shared-memory counters, one global atomic per nonzero counter.
+//
+// All four count exact integers, so the order of the atomics does not matter.
 //
 // Bound on the card: bytes. Each plane is read once (2 bytes per element for
-// the select, 1 + 4 for the threshold histogram); the skey read is skipped
-// for excluded elements. The 65,536-bucket histogram (256 KB per song) stays
-// in L2; excluded elements (most of the plane) never touch it.
+// bisect16_pair, 1 + 4 for the threshold histogram, 1 for bisect8, 4 for
+// hist_int); the skey read is skipped for excluded elements. The 65,536-bucket
+// histogram (256 KB per song) stays in L2; the 256-bucket and 128-counter
+// histograms stay in shared memory. Excluded elements (most of every plane:
+// ~0.5% of the tuning band are peaks) skip every atomic.
 #include <cuda_runtime.h>
 
 namespace {
@@ -131,6 +149,81 @@ hist_threshold_kernel(const signed char* __restrict__ idx8,
   }
 }
 
+__global__ void __launch_bounds__(kHistThreads)
+hist8_kernel(const signed char* __restrict__ plane, long long n,
+             unsigned int* __restrict__ hist) {
+  __shared__ unsigned int counts[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) counts[i] = 0;
+  __syncthreads();
+  const signed char* p = plane + static_cast<long long>(blockIdx.y) * n;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += step) {
+    const int u = static_cast<int>(p[i]) + 128;
+    if (u != 255) atomicAdd(&counts[u], 1u);
+  }
+  __syncthreads();
+  unsigned int* h = hist + static_cast<long long>(blockIdx.y) * 256;
+  for (int i = threadIdx.x; i < 255; i += blockDim.x) {
+    if (counts[i] != 0) atomicAdd(&h[i], counts[i]);
+  }
+}
+
+// One 256-thread block per song: thread v holds count(v); an inclusive scan
+// gives count(<= v); the bucket is the first v <= 0xFE reaching k + 1.
+__global__ void __launch_bounds__(256)
+select8_kernel(const unsigned int* __restrict__ hist,
+               const int* __restrict__ ks, int* __restrict__ out) {
+  __shared__ unsigned long long warp_tot[8];
+  __shared__ int bucket;
+  const int v = threadIdx.x;
+  const int lane = v & 31;
+  const int warp = v >> 5;
+  const unsigned long long c = hist[static_cast<long long>(blockIdx.x) * 256 + v];
+  unsigned long long incl = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  if (v == 0) bucket = 255;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += warp_tot[w];
+  const unsigned long long target =
+      static_cast<unsigned long long>(ks[blockIdx.x]) + 1ull;
+  // count(<= v) grows with v, so the first v reaching the target is unique
+  if (v < 255 && incl >= target && incl - c < target) bucket = v;
+  __syncthreads();
+  // below = count(<= bucket - 1), held by thread bucket - 1
+  if (bucket == 0 && v == 0) out[2 * blockIdx.x + 1] = 0;
+  if (v == bucket - 1) out[2 * blockIdx.x + 1] = static_cast<int>(incl);
+  if (v == 0) out[2 * blockIdx.x] = bucket;
+}
+
+__global__ void __launch_bounds__(kHistThreads)
+hist_int_kernel(const int* __restrict__ idx, long long n, int n_bins,
+                int* __restrict__ out) {
+  __shared__ int counts[128];
+  for (int i = threadIdx.x; i < 128; i += blockDim.x) counts[i] = 0;
+  __syncthreads();
+  const int* p = idx + static_cast<long long>(blockIdx.y) * n;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += step) {
+    const int v = p[i];
+    if (v >= 0 && v < n_bins) atomicAdd(&counts[v], 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_bins; i += blockDim.x) {
+    if (counts[i] != 0) {
+      atomicAdd(&out[static_cast<long long>(blockIdx.y) * n_bins + i],
+                counts[i]);
+    }
+  }
+}
+
 int grid_for(long long n) {
   const long long per_block = static_cast<long long>(kHistThreads) * 16;
   long long g = (n + per_block - 1) / per_block;
@@ -166,5 +259,31 @@ extern "C" int hist_threshold_launch(const signed char* idx8, const int* skey,
   if (n_bins > 128) return static_cast<int>(cudaErrorInvalidValue);
   hist_threshold_kernel<<<dim3(grid_for(n), batch), kHistThreads, 0, stream>>>(
       idx8, skey, tk, n, n_bins, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hist: [batch, 256] u32, zeroed by the caller; ks: [batch];
+// out: [batch, 2] = [bucket, below].
+extern "C" int bisect8_launch(const signed char* plane, int batch, long long n,
+                              const int* ks, unsigned int* hist, int* out,
+                              cudaStream_t stream) {
+  if (batch <= 0) return 0;
+  if (n > 0) {
+    hist8_kernel<<<dim3(grid_for(n), batch), kHistThreads, 0, stream>>>(
+        plane, n, hist);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  select8_kernel<<<batch, 256, 0, stream>>>(hist, ks, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: [batch, n_bins] i32, zeroed by the caller.
+extern "C" int hist_int_launch(const int* idx, int batch, long long n,
+                               int n_bins, int* out, cudaStream_t stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (n_bins > 128) return static_cast<int>(cudaErrorInvalidValue);
+  hist_int_kernel<<<dim3(grid_for(n), batch), kHistThreads, 0, stream>>>(
+      idx, n, n_bins, out);
   return static_cast<int>(cudaGetLastError());
 }

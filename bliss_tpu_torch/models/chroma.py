@@ -4,10 +4,13 @@ plus the interval features of "Timbre-invariant Audio Features for Style
 Analysis of Classical Music").
 
 The 8192/2205 STFT runs in one kernel launch for the whole batch
-(`ops/spectral.stft`); the tuning estimate at f32 is the fused estimator,
-whose two exact counting passes are the kernels of
-`ops/tuning_kernels.py`. At f64 (the CPU golden path) tuning takes the
-sort-based route of the reference.
+(`ops/spectral.stft`). The tuning estimate picks its route per bucket as
+the JAX package does (`chroma_features`): at f32 the fused estimator
+(`bisect16_pair` + `histogram_threshold_plane`) while its per-song plane
+fits the reference's budget, else the unfused one (the byte-radix median
+with `bisect8`, then `histogram_int_plane`); all four are the counting
+kernels of `ops/tuning_kernels.py`. At f64 (the CPU golden path) tuning
+takes the unfused route with the sort-based median of the reference.
 
 Float discipline: FFT magnitudes are f32; everything after is carried in
 `dtype` (f64 on the CPU for golden parity, f32 on the card).
@@ -24,12 +27,16 @@ import torch
 from ..features import SAMPLE_RATE
 from ..ops.reductions import (
     _float_sort_key,
-    _key_to_float,
+    _u32_key_to_float,
     masked_mean,
     masked_quantile_midpoint_all,
 )
 from ..ops.spectral import stft
-from ..ops.tuning_kernels import bisect16_pair, histogram_threshold_plane
+from ..ops.tuning_kernels import (
+    bisect16_pair,
+    histogram_int_plane,
+    histogram_threshold_plane,
+)
 from ..ops.windows import n_frames_stft
 from ..tables import template_product_indices
 
@@ -154,16 +161,22 @@ def pitch_tuning(
     bins_per_octave: int = 12,
 ):
     """Histogram-mode tuning offset `[B]` in [-0.5, 0.5) of the masked
-    frequencies of each song; an empty selection yields 0.0."""
-    b = frequencies.shape[0]
+    frequencies of each song; an empty selection yields 0.0. The mask is
+    folded into the sentinel bin `n_bins`, which `histogram_int_plane`
+    ignores (bliss_tpu/models/chroma.py:261-276)."""
     n_bins = int(round(1.0 / resolution))
-    sel = (mask & (frequencies > 0.0)).reshape(b, -1)
-    idx = _tuning_bins(frequencies, resolution, bins_per_octave).reshape(b, -1).to(torch.int64)
-    song = torch.arange(b, device=idx.device).unsqueeze(1).expand_as(idx)
-    counts = torch.bincount((song * n_bins + idx)[sel], minlength=b * n_bins)
-    return _tuning_from_counts(
-        counts.reshape(b, n_bins), sel.any(1), resolution, frequencies.dtype
-    )
+    idx_m = tuning_bin_plane(frequencies, mask, resolution, bins_per_octave)
+    counts = histogram_int_plane(idx_m, n_bins)
+    return _tuning_from_counts(counts, counts.sum(1) > 0, resolution, frequencies.dtype)
+
+
+def tuning_bin_plane(frequencies, mask, resolution: float = 0.01, bins_per_octave: int = 12):
+    """The int32 plane `histogram_int_plane` counts: each selected positive
+    frequency's tuning bin, the sentinel `n_bins` elsewhere."""
+    n_bins = int(round(1.0 / resolution))
+    sel = mask & (frequencies > 0.0)
+    idx = _tuning_bins(frequencies, resolution, bins_per_octave)
+    return torch.where(sel, idx, n_bins).to(torch.int32).contiguous()
 
 
 def estimate_tuning(
@@ -174,7 +187,9 @@ def estimate_tuning(
     bins_per_octave: int = 12,
 ):
     """Tuning offset `[B]` from a magnitude spectrogram `[B, bins, F]`
-    (src/chroma.rs:361-391): the sort-based reference route."""
+    (src/chroma.rs:361-391), the unfused route: the masked median of the
+    peak magnitudes (`bisect8` through the radix select on a CUDA f32
+    tensor, a sort otherwise), then the histogram of the peaks above it."""
     pitches, mags, peak_mask = pip_track(spectrum, frame_mask, n_fft)
     pos_mask = peak_mask & (pitches > 0.0)
     threshold = masked_quantile_midpoint_all(mags, pos_mask, 0.5)
@@ -183,9 +198,27 @@ def estimate_tuning(
     return torch.where(peak_mask.flatten(1).any(1), tuning, 0.0)
 
 
-def _u32_to_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 tensor holding u32 bit patterns -> the same bits as int32."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+#: The JAX package's budget for the fused estimator's per-song i16 plane
+#: (bliss_tpu/models/chroma.py:441); buckets above it take the unfused route.
+FUSED_PLANE_BUDGET = 12 << 20
+
+
+def _fused_plane_bytes(n_frames: int, n_fft: int) -> int:
+    """Tile-padded i16 plane of the fused estimator for one song of
+    `n_frames` frames: rows padded to 32, columns to 128, 2 bytes each
+    (bliss_tpu/models/chroma.py:_fused_plane_bytes)."""
+    beginning, end = _pitch_band(n_fft)
+    rows = end - beginning - 3
+    return (-(-rows // 32) * 32) * (-(-n_frames // 128) * 128) * 2
+
+
+def uses_fused_tuning(n_frames: int, dtype) -> bool:
+    """Whether a bucket of `n_frames` chroma frames per song is tuned by
+    the fused estimator: f32 and within the reference's plane budget."""
+    return (
+        dtype == torch.float32
+        and _fused_plane_bytes(n_frames, WINDOW_SIZE) <= FUSED_PLANE_BUDGET
+    )
 
 
 def tuning_planes(
@@ -247,11 +280,7 @@ def threshold_key(o1, o2, min_c, dtype) -> torch.Tensor:
     v_lo_c = torch.where(b_f == b_c, o2[:, 1], min_c)
     key_f = (b_f.to(torch.int64) << 16) | o2[:, 0].to(torch.int64)
     key_c = (b_c.to(torch.int64) << 16) | v_lo_c.to(torch.int64)
-    # unsigned key -> signed key: flip the top bit
-    t = (
-        _key_to_float(_u32_to_i32(key_f ^ (1 << 31)), dtype)
-        + _key_to_float(_u32_to_i32(key_c ^ (1 << 31)), dtype)
-    ) * 0.5
+    t = (_u32_key_to_float(key_f, dtype) + _u32_key_to_float(key_c, dtype)) * 0.5
     return torch.where(t == 0.0, -1, _float_sort_key(t)).to(torch.int32).contiguous()
 
 
@@ -398,7 +427,7 @@ def chroma_features(
         signal, WINDOW_SIZE, HOP_SIZE, lengths=lengths, n_frames=n_frames_max,
         dtype=dtype, window=window, twiddle=twiddle,
     )  # [B, 4097, F]
-    if dtype == torch.float32:
+    if uses_fused_tuning(n_frames_max, dtype):
         tuning = _estimate_tuning_fused(spectrum, frame_mask, WINDOW_SIZE)
     else:
         tuning = estimate_tuning(spectrum, frame_mask, WINDOW_SIZE)

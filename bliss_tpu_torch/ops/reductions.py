@@ -48,6 +48,14 @@ def _key_to_float(key: torch.Tensor, dtype) -> torch.Tensor:
     return torch.where(key < 0, key ^ low, key).view(dtype)
 
 
+def _u32_key_to_float(key: torch.Tensor, dtype) -> torch.Tensor:
+    """Float of an f32 sort key in the JAX package's unsigned form, held
+    as u32 bit patterns in an int64 tensor: flip the top bit to get the
+    signed key, then invert it."""
+    signed = key ^ (1 << 31)
+    return _key_to_float(torch.where(signed >= 1 << 31, signed - (1 << 32), signed), dtype)
+
+
 def masked_quantile_midpoint(
     values: torch.Tensor, mask: torch.Tensor, q: float = 0.5
 ) -> torch.Tensor:
@@ -71,8 +79,18 @@ def masked_quantile_midpoint_all(
     values: torch.Tensor, mask: torch.Tensor, q: float = 0.5
 ) -> torch.Tensor:
     """`masked_quantile_midpoint` over all elements after the batch axis:
-    `[B, ...]` in, `[B]` out."""
+    `[B, ...]` in, `[B]` out.
+
+    A CUDA f32 tensor goes through the byte-radix select and its `bisect8`
+    kernel at every size. The JAX package takes its XLA bisect above an
+    8 MiB int8 plane (bliss_tpu/ops/reductions.py:187-190), a bound set by
+    the TPU's VMEM, which has no counterpart on the card. Both routes
+    select exactly, so the result is the same."""
     b = values.shape[0]
+    if values.device.type == "cuda" and values.dtype == torch.float32:
+        from .tuning_kernels import masked_quantile_midpoint_radix
+
+        return masked_quantile_midpoint_radix(values, mask, q)
     return masked_quantile_midpoint(values.reshape(b, -1), mask.reshape(b, -1), q)
 
 

@@ -1,10 +1,11 @@
 """Tuning-estimator kernel wrappers (counterpart of
-bliss_tpu/ops/pallas_select.py:bisect16_pair and
-bliss_tpu/ops/pallas_hist.py:histogram_threshold_plane).
+bliss_tpu/ops/pallas_select.py and bliss_tpu/ops/pallas_hist.py).
 
-Both kernels live in csrc/tuning.cu and count exact integers. Each
-wrapper runs its kernel on CUDA tensors and its plain version (here, with
-`torch.bincount` and `torch.cumsum`) on CPU tensors.
+The fused route's `bisect16_pair` and `histogram_threshold_plane`, and the
+unfused route's `bisect8` (under `masked_quantile_midpoint_radix`) and
+`histogram_int_plane`. All four kernels live in csrc/tuning.cu and count
+exact integers. Each wrapper runs its kernel on CUDA tensors and its plain
+version (here, with `torch.bincount` and `torch.cumsum`) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,25 +20,33 @@ N_BUCKETS = 1 << 16
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def bisect16_pair_plain(plane: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
-    """Plain version of `bisect16_pair`: a bincount of the u16 values,
-    its cumulative sum, and `searchsorted` for each rank."""
+def _counting_select(plane: torch.Tensor, ks: torch.Tensor, n_buckets: int):
+    """Plain counting select over a plane `[B, ...]` of values offset by
+    -n_buckets/2 (the top value marks an excluded element) for ranks
+    `ks [B, R]`: a bincount, its cumulative sum and `searchsorted`. Returns
+    `[B, R]` buckets and `[B, R]` counts below them, int64."""
     b = plane.shape[0]
-    u = plane.reshape(b, -1).to(torch.int64) + 32768
-    keep = u != N_BUCKETS - 1
+    u = plane.reshape(b, -1).to(torch.int64) + n_buckets // 2
+    keep = u != n_buckets - 1
     song = torch.arange(b, device=plane.device).unsqueeze(1).expand_as(u)
     hist = torch.bincount(
-        (song * N_BUCKETS + u)[keep], minlength=b * N_BUCKETS
-    ).reshape(b, N_BUCKETS)
+        (song * n_buckets + u)[keep], minlength=b * n_buckets
+    ).reshape(b, n_buckets)
     cum = torch.cumsum(hist, dim=1)
     target = ks.to(torch.int64) + 1
-    # first v <= 0xFFFE with count(<= v) >= k + 1, else 0xFFFF
-    bucket = torch.searchsorted(cum[:, : N_BUCKETS - 1].contiguous(), target)
+    # first v <= top - 1 with count(<= v) >= k + 1, else the top value
+    bucket = torch.searchsorted(cum[:, : n_buckets - 1].contiguous(), target)
     below = torch.where(
         bucket > 0,
         torch.gather(cum, 1, torch.clamp(bucket - 1, min=0)),
         torch.zeros_like(bucket),
     )
+    return bucket, below
+
+
+def bisect16_pair_plain(plane: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+    """Plain version of `bisect16_pair`."""
+    bucket, below = _counting_select(plane, ks, N_BUCKETS)
     return torch.cat([bucket, below], dim=1).to(torch.int32)
 
 
@@ -116,3 +125,134 @@ def histogram_threshold_plane(
     _build.check("histogram_threshold_plane", err)
     _build.count_launch("histogram_threshold_plane")
     return out
+
+
+def bisect8_plain(plane: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Plain version of `bisect8`."""
+    bucket, below = _counting_select(plane, k.reshape(-1, 1), 256)
+    return torch.cat([bucket, below], dim=1).to(torch.int32)
+
+
+def bisect8(plane: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Exact k-th-smallest byte bucket over an int8 plane `[B, ...]` (key
+    bytes offset by -128; 127, byte 0xFF, marks an excluded element).
+
+    `k` is `[B]` int32. Returns `[B, 2]` int32 `[bucket, below]`: the first
+    byte v <= 0xFE with count(<= v) >= k + 1, else 0xFF, and the number of
+    elements in lower buckets; bit for bit the TPU kernel's sentinel rule
+    (pallas_select.py:17-24): a valid byte 0xFF is reached only as the 0xFF
+    fallback and never counted.
+    """
+    if not _build.on_cuda(plane):
+        return bisect8_plain(plane, k)
+    dev = plane.device
+    b = plane.shape[0]
+    flat = plane.reshape(b, -1)
+    _build.require("plane", flat, torch.int8, 2, dev)
+    _build.require("k", k, torch.int32, 1, dev)
+    if k.shape[0] != b:
+        raise ValueError(f"k: expected shape ({b},), got {tuple(k.shape)}")
+    hist = torch.zeros((b, 256), dtype=torch.int32, device=dev)
+    out = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    fn = _build.function("tuning", "bisect8_launch", [_P, _I, _L, _P, _P, _P, _P])
+    err = fn(
+        _build.ptr(flat), b, flat.shape[1], _build.ptr(k), _build.ptr(hist),
+        _build.ptr(out), _build.stream_ptr(dev),
+    )
+    _build.check("bisect8", err)
+    _build.count_launch("bisect8")
+    return out
+
+
+def histogram_int_plane_plain(idx: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Plain version of `histogram_int_plane`: `torch.bincount` with
+    per-song offsets."""
+    b = idx.shape[0]
+    v = idx.reshape(b, -1).to(torch.int64)
+    sel = (v >= 0) & (v < n_bins)
+    song = torch.arange(b, device=idx.device).unsqueeze(1).expand_as(v)
+    counts = torch.bincount((song * n_bins + v)[sel], minlength=b * n_bins)
+    return counts.reshape(b, n_bins).to(torch.int32)
+
+
+def histogram_int_plane(idx: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Counts of `idx == v` for v in [0, n_bins) over an int32 plane
+    `[B, ...]`, per song -> `[B, n_bins]` int32. Values outside
+    [0, n_bins) are ignored (the caller uses `n_bins` as the sentinel)."""
+    if not _build.on_cuda(idx):
+        return histogram_int_plane_plain(idx, n_bins)
+    dev = idx.device
+    b = idx.shape[0]
+    flat = idx.reshape(b, -1)
+    _build.require("idx", flat, torch.int32, 2, dev)
+    if n_bins > 128:
+        raise ValueError(f"histogram_int_plane: n_bins {n_bins} > 128")
+    out = torch.zeros((b, n_bins), dtype=torch.int32, device=dev)
+    fn = _build.function("tuning", "hist_int_launch", [_P, _I, _L, _I, _P, _P])
+    err = fn(
+        _build.ptr(flat), b, flat.shape[1], n_bins, _build.ptr(out),
+        _build.stream_ptr(dev),
+    )
+    _build.check("histogram_int_plane", err)
+    _build.count_launch("histogram_int_plane")
+    return out
+
+
+_INT32_MIN = -(1 << 31)
+
+
+def radix_keys(values: torch.Tensor, mask: torch.Tensor, q: float = 0.5):
+    """The radix select's inputs for `[B, ...]` values: the u32 sort keys'
+    bit patterns as int32 `[B, N]` (all ones where masked out), the flat
+    mask, the valid counts `[B]`, and the floor/ceil ranks of the midpoint
+    quantile, each `[B]` int32 (pallas_select.py:236-245)."""
+    b = values.shape[0]
+    v = values.reshape(b, -1)
+    m = mask.reshape(b, -1)
+    skey = v.view(torch.int32)
+    u = torch.where(skey < 0, ~skey, skey ^ _INT32_MIN)
+    u = torch.where(m, u, -1)
+    n = m.to(torch.int32).sum(1)
+    pos = (n - 1).to(torch.float32) * q
+    ranks = [
+        torch.clamp(torch.floor(pos).to(torch.int32), min=0),
+        torch.clamp(torch.ceil(pos).to(torch.int32), min=0),
+    ]
+    return u, m, n, ranks
+
+
+def radix_plane(u: torch.Tensor, m: torch.Tensor, level: int, prefix: torch.Tensor):
+    """The int8 plane of radix `level` (0-3): each key's byte at that level
+    offset by -128, where the key's higher bytes equal the rank's `prefix
+    [B]` (and the mask holds), 127 elsewhere (pallas_select.py:249-263)."""
+    shift = 24 - 8 * level
+    sb = (((u >> shift) & 0xFF) - 128).to(torch.int8)
+    member = m
+    if level:
+        # the higher bytes, logically shifted down
+        hi_bits = (u >> (shift + 8)) & ((1 << (24 - shift)) - 1)
+        member = m & (hi_bits == prefix.to(torch.int32).unsqueeze(1))
+    return torch.where(member, sb, 127).to(torch.int8).contiguous()
+
+
+def masked_quantile_midpoint_radix(
+    values: torch.Tensor, mask: torch.Tensor, q: float = 0.5
+) -> torch.Tensor:
+    """Midpoint-interpolated masked quantile of each song's f32 values
+    `[B, ...]` -> `[B]` by a 4-level byte radix over the u32 sort keys
+    (bliss_tpu/ops/pallas_select.py:masked_quantile_midpoint_radix): per
+    level and rank, the plane of this level's key byte (`radix_plane`),
+    then `bisect8`; 8 launches per call. Exactly
+    `masked_quantile_midpoint_all`'s result; +inf for an all-False mask."""
+    from .reductions import _u32_key_to_float
+
+    u, m, n, rem = radix_keys(values, mask, q)
+    prefix = [torch.zeros(u.shape[0], dtype=torch.int64, device=u.device) for _ in range(2)]
+    for level in range(4):
+        outs = [bisect8(radix_plane(u, m, level, prefix[s]), rem[s]) for s in range(2)]
+        for s in range(2):
+            prefix[s] = (prefix[s] << 8) | outs[s][:, 0].to(torch.int64)
+            rem[s] = (rem[s] - outs[s][:, 1]).to(torch.int32).contiguous()
+    lo, hi = (_u32_key_to_float(p, values.dtype) for p in prefix)
+    mid = (lo + hi) * 0.5
+    return torch.where(n > 0, mid, float("inf"))

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--songs 8] [--seconds 300] [--profile]
+                          [--corpus default|full]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of `bliss_tpu_torch/csrc` (one nvcc each, in
@@ -16,7 +17,22 @@
    of one batch: device busy share and the longest-running kernels);
 6. holds the card's f32 vectors against the port's CPU f64 path: on
    tests/data/piano.wav (<= 1e-4 per feature, and against the pinned
-   PIANO_V2) and on one synthetic song (<= 2e-2, same dominant chroma).
+   PIANO_V2) and on one synthetic song (<= 2e-2, same dominant chroma);
+7. long buckets, whose tuning takes the unfused route: on 8 synthetic
+   7-minute songs (bucket 10,485,760) and 2 synthetic 21-minute songs
+   (bucket 29,360,128, B = 2) holds `bisect8` and `histogram_int_plane`
+   against their plain versions at full width and times them, drives
+   `analyze_batch` with the counts reset (the two must launch, the fused
+   route's two must not), holds the unfused tuning equal to the fused
+   route's on the same spectra, and one 7-minute song's vector against
+   the CPU f64 path (<= 2e-2, same dominant chroma);
+8. files: `io.batch.analyze_paths_batched` on the card over the drift
+   fixtures (all but the 21-minute medley), piano.flac,
+   s16_mono_22_5kHz.flac and testcue.cue (`--corpus full`: every fixture
+   of the drift corpus), with decoding (the batch driver's decode threads, then
+   one decode worker) and from the decoded songs, and holds each vector against the port's CPU f64 path on the
+   same decoded samples: <= 1e-4 per feature on real content, <= 2e-2 and
+   the same dominant chroma on the pure-tone and dyad synthetics.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, then the
 result line. Any failed phase exits non-zero. Imports nothing of JAX.
@@ -25,6 +41,7 @@ result line. Any failed phase exits non-zero. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import pathlib
@@ -48,6 +65,20 @@ PIANO_V2 = [
     -0.21420372, 0.0001308918, 0.00009226799, -0.000012934208,
     -0.00021022558, -0.47165334, -0.6606562, 0.15777446,
 ]
+
+#: The kernels of the fused tuning route (buckets up to 8,388,608 samples)
+#: and of the unfused one (longer buckets).
+FUSED_ROUTE = ("bisect16_pair", "histogram_threshold_plane")
+UNFUSED_ROUTE = ("bisect8", "histogram_int_plane")
+
+#: Fixtures whose true spectra sit below the f32 DFT noise floor (pure
+#: tones and dyads, tests/test_tpu_drift.py:_degenerate): held at 2e-2 and
+#: the same dominant chroma instead of 1e-4.
+DATA = REPO / "tests" / "data"
+DEGENERATE = {
+    str(p) for p in sorted((DATA / "chroma").glob("*.ogg"))
+    + [DATA / "tone_11080Hz.flac", DATA / "capacity_fix.ogg", DATA / "silence.ogg"]
+}
 
 #: Card peaks used for the bounds (NVIDIA H100 SXM data sheet): HBM rate
 #: and the f32 rate outside the tensor cores.
@@ -217,6 +248,263 @@ def profile_batch(batch, lengths) -> None:
         print(f"  {dt / 1e3:9.3f} ms {count:7d}x {key[:90]}")
 
 
+def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bool) -> None:
+    """One long bucket on the card: the unfused route's kernels at full
+    width against their plain versions (times, bounds, library calls),
+    the batch through `analyze_batch` with the launch counts reset, the
+    unfused tuning against the fused route's on the same spectra, and (for
+    the 7-minute batch) one song against the CPU f64 path."""
+    from bliss_tpu_torch.models import chroma as CH
+    from bliss_tpu_torch.models.analyzer import analyze_batch, analyze_samples, bucket_length
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.ops import reductions as RD
+    from bliss_tpu_torch.ops import tuning_kernels as TK
+    from bliss_tpu_torch.ops.spectral import stft
+    from bliss_tpu_torch.ops.windows import n_frames_stft
+
+    label = f"{n_songs} x {seconds / 60:g}-min"
+    t0 = time.perf_counter()
+    n = int(round(seconds * 22050))
+    tpad = bucket_length(n)
+    batch = np.zeros((n_songs, tpad), np.float32)
+    for i in range(n_songs):
+        batch[i, :n] = synth_song(rng, n)
+    lengths = np.full(n_songs, n, np.int64)
+    print(f"long bucket {label}: {n} samples (buffer {tpad}), data in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    dev = torch.device("cuda", 0)
+    x = torch.as_tensor(batch, device=dev)
+    lens = torch.as_tensor(lengths, device=dev)
+    nfc = int(n_frames_stft(tpad, 2205))
+    if CH.uses_fused_tuning(nfc, torch.float32):
+        fail(f"{label}: bucket {tpad} ({nfc} frames) is within the fused budget")
+    frame_mask = torch.arange(nfc, device=dev) < n_frames_stft(lens, 2205).unsqueeze(-1)
+    spectrum = stft(x, 8192, 2205, lens, nfc)
+
+    # the unfused route's planes, as estimate_tuning builds them
+    pitches, mags, peak = CH.pip_track(spectrum, frame_mask, 8192)
+    pos = peak & (pitches > 0.0)
+    u, m, n_peaks, ranks = TK.radix_keys(mags, pos)
+    plane = TK.radix_plane(u, m, 0, torch.zeros(n_songs, dtype=torch.int64, device=dev))
+    k = ranks[0]
+    got, want = TK.bisect8(plane, k), TK.bisect8_plain(plane, k)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{label}: bisect8 != plain: {got.tolist()} {want.tolist()}")
+    thr = TK.masked_quantile_midpoint_radix(mags, pos)
+    thr_sort = RD.masked_quantile_midpoint(mags.reshape(n_songs, -1), pos.reshape(n_songs, -1))
+    if not torch.equal(thr, thr_sort):
+        fail(f"{label}: radix median != sort median: {thr.tolist()} {thr_sort.tolist()}")
+    sel = pos & (mags >= thr.view(-1, 1, 1))
+    idx_m = CH.tuning_bin_plane(pitches, sel)
+    hist, histp = TK.histogram_int_plane(idx_m, 100), TK.histogram_int_plane_plain(idx_m, 100)
+    if not torch.equal(hist, histp):
+        fail(f"{label}: histogram_int_plane != plain")
+    n_el = plane.numel()
+    print(f"  {label}: {int(n_peaks.sum())} peaks in {n_el} plane elements; bisect8, the radix "
+          f"median and histogram_int_plane exact", flush=True)
+
+    # times: the kernels, their plain versions, and the library calls
+    b8_ms = time_ms(lambda: TK.bisect8(plane, k), 20)
+    b8_plain = time_ms(lambda: TK.bisect8_plain(plane, k), 3)
+    select_ms = time_ms(lambda: TK.masked_quantile_midpoint_radix(mags, pos), 5)
+    vals = mags.reshape(n_songs, -1)
+    mflat = pos.reshape(n_songs, -1)
+    inf_vals = torch.where(mflat, vals, float("inf"))
+    kf = [int(r) + 1 for r in ranks[0].tolist()]
+    kc = [int(r) + 1 for r in ranks[1].tolist()]
+
+    def kthvalue_select():
+        for i in range(n_songs):
+            torch.kthvalue(inf_vals[i], kf[i])
+            torch.kthvalue(inf_vals[i], kc[i])
+
+    kth_ms = time_ms(kthvalue_select, 3)
+    nanq_ms = None
+    if vals.shape[1] <= 1 << 24:  # torch.quantile's input size limit
+        nan_vals = torch.where(mflat, vals, float("nan"))
+        nanq = torch.nanquantile(nan_vals, 0.5, dim=1, interpolation="midpoint")
+        if not torch.equal(nanq, thr):
+            print(f"  note: nanquantile differs from the exact median by "
+                  f"{(nanq - thr).abs().max().item():.3g}")
+        nanq_ms = time_ms(lambda: torch.nanquantile(nan_vals, 0.5, dim=1, interpolation="midpoint"), 3)
+        del nan_vals
+    hi_ms = time_ms(lambda: TK.histogram_int_plane(idx_m, 100), 20)
+    hi_plain = time_ms(lambda: TK.histogram_int_plane_plain(idx_m, 100), 3)
+    song_id = torch.arange(n_songs, device=dev).view(-1, 1, 1)
+    offsets = torch.where(idx_m < 100, song_id * 100 + idx_m, n_songs * 100).reshape(-1)
+    bincount_ms = time_ms(lambda: torch.bincount(offsets, minlength=n_songs * 100 + 1), 5)
+    b8_bound = bound(n_el + n_songs * 12, n_el)
+    hi_bound = bound(idx_m.numel() * 4 + n_songs * 400, idx_m.numel())
+    print(f"  {label} bisect8: {b8_ms:.4f} ms (plain {b8_plain:.4f}, bound {b8_bound[0]:.4f} by "
+          f"{b8_bound[1]}); whole radix select {select_ms:.4f} ms vs torch.kthvalue x {2 * n_songs} "
+          f"{kth_ms:.4f} ms, torch.nanquantile {nanq_ms} ms", flush=True)
+    print(f"  {label} histogram_int_plane: {hi_ms:.4f} ms (plain {hi_plain:.4f}, bound "
+          f"{hi_bound[0]:.4f} by {hi_bound[1]}); torch.bincount {bincount_ms:.4f} ms", flush=True)
+    if record_json:
+        for name, err_ms, plain_ms, bnd, lib in (
+            ("bisect8", b8_ms, b8_plain, b8_bound, nanq_ms),
+            ("histogram_int_plane", hi_ms, hi_plain, hi_bound, bincount_ms),
+        ):
+            results[name] = {
+                "name": name, "route": "cuda", "source": "bliss_tpu_torch/csrc/tuning.cu",
+                "replaces": ("bliss_tpu/ops/pallas_select.py:39" if name == "bisect8"
+                             else "bliss_tpu/ops/pallas_hist.py:45"),
+                "launches": 0, "max_abs_err": 0.0, "ms": err_ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
+            }
+
+    # the unfused tuning equals the fused route's on the same spectra
+    unfused = CH.estimate_tuning(spectrum, frame_mask, 8192)
+    fused = CH._estimate_tuning_fused(spectrum, frame_mask, 8192)
+    if not torch.equal(unfused, fused):
+        fail(f"{label}: unfused tuning {unfused.tolist()} != fused {fused.tolist()}")
+    unfused_ms = time_ms(lambda: CH.estimate_tuning(spectrum, frame_mask, 8192), 3)
+    fused_ms = time_ms(lambda: CH._estimate_tuning_fused(spectrum, frame_mask, 8192), 3)
+    print(f"  {label}: unfused tuning == fused route's, bit for bit: {unfused.tolist()}; "
+          f"tuning stage {unfused_ms:.3f} ms unfused (this bucket's route), {fused_ms:.3f} ms "
+          f"fused", flush=True)
+    del spectrum, pitches, mags, peak, pos, u, m, plane, idx_m, inf_vals, vals, mflat, offsets, sel
+    del x, lens, frame_mask
+    torch.cuda.empty_cache()
+
+    # the batch through the entry point, counts reset just before
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = analyze_batch(batch, lengths, version=2, device="cuda")
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    analyze_batch(batch, lengths, version=2, device="cuda")
+    warm_s = time.perf_counter() - t0
+    print(f"  {label} batch V2: first {first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{n_songs / warm_s:.2f} songs/s; launches {launches} [{card}]", flush=True)
+    need = ("timbral_fft", "specflux", "ct_stft") + UNFUSED_ROUTE
+    if any(launches.get(k, 0) < 1 for k in need) or any(launches.get(k, 0) for k in FUSED_ROUTE):
+        fail(f"{label}: wrong kernels on the long bucket (counts {launches})")
+    if record_json:
+        for name in UNFUSED_ROUTE:
+            results[name]["launches"] = launches[name]
+    if feats.shape != (n_songs, 23) or not np.isfinite(feats).all():
+        fail(f"{label}: features {feats.shape}, finite {np.isfinite(feats).all()}")
+    if record_json:
+        t0 = time.perf_counter()
+        cpu0 = analyze_samples(batch[0, :n], n, 2, device="cpu").cpu().numpy()
+        d = np.abs(feats[0] - cpu0).max()
+        same_argmax = int(np.argmax(feats[0, 10:])) == int(np.argmax(cpu0[10:]))
+        print(f"  {label} song 0: CUDA f32 vs CPU f64 max {d:.3g} (limit 2e-2), dominant chroma "
+              f"{'agrees' if same_argmax else 'DIFFERS'} (CPU run {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if d > 2e-2 or not same_argmax:
+            fail(f"{label}: synthetic song drift")
+
+
+def files_phase(corpus: str, card: str) -> None:
+    """Files to features on the card through the batch driver, timed with
+    and without decoding, held against the port's CPU f64 path on the
+    same decoded samples."""
+    from bliss_tpu_torch.io.batch import analyze_paths_batched
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+    from bliss_tpu_torch.song import Song
+
+    drift = sorted((DATA / "drift").iterdir())
+    if corpus == "full":
+        # benches/tpu_drift.py:CORPUS
+        paths = sorted(
+            p for p in list(DATA.glob("*.flac")) + list(DATA.glob("*.mp3"))
+            + list(DATA.glob("*.ogg")) + list(DATA.glob("*.wav"))
+            + list((DATA / "chroma").glob("*.ogg")) + drift
+            if p.name != "empty.wav"
+        ) + [DATA / "testcue.cue"]
+    else:
+        paths = [p for p in drift if "medley" not in p.name] + [
+            DATA / "piano.flac", DATA / "s16_mono_22_5kHz.flac", DATA / "testcue.cue",
+        ]
+    decoded: dict = {}
+    decode_s: dict = {}
+
+    class Recording(FallbackDecoder):
+        """Decodes, and keeps a copy of each decoded song."""
+
+        @classmethod
+        def decode(cls, path):
+            t0 = time.perf_counter()
+            song = FallbackDecoder.decode(path)
+            decode_s[str(path)] = time.perf_counter() - t0
+            decoded[str(path)] = dataclasses.replace(song, sample_array=song.sample_array.copy())
+            return song
+
+    class Decoded(FallbackDecoder):
+        """Hands out the kept songs: the same samples without decoding."""
+
+        @classmethod
+        def decode(cls, path):
+            song = decoded.get(str(path))
+            if song is None:  # a file that failed to decode fails again
+                return FallbackDecoder.decode(path)
+            return dataclasses.replace(song, sample_array=song.sample_array.copy())
+
+    def run(decoder, device, workers=None):
+        t0 = time.perf_counter()
+        out = {
+            str(p): r
+            for p, r in analyze_paths_batched(decoder, paths, device=device, decode_workers=workers)
+        }
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    gpu, with_s = run(Recording, "cuda")
+    threads_s = sum(decode_s.values())
+    gpu1, one_worker_s = run(Recording, "cuda", workers=1)
+    serial_s = sum(decode_s.values())
+    gpu2, without_s = run(Decoded, "cuda")
+    cpu, cpu_s = run(Decoded, "cpu")
+    songs = sorted(k for k, r in gpu.items() if isinstance(r, Song))
+    n_songs = len(songs)
+    share = (with_s - without_s) / with_s
+    print(f"files ({corpus}): {len(paths)} paths -> {n_songs} songs; with decode {with_s:.2f} s = "
+          f"{n_songs / with_s:.3f} songs/s, from decoded songs {without_s:.2f} s = "
+          f"{n_songs / without_s:.3f} songs/s; decode share {share:.3f} (decode time summed over "
+          f"threads {threads_s:.1f} s); with one decode worker {one_worker_s:.2f} s = "
+          f"{n_songs / one_worker_s:.3f} songs/s (decode {serial_s:.1f} s); CPU f64 reference "
+          f"{cpu_s:.1f} s [{card}]", flush=True)
+    failures = []
+    if not sorted(gpu) == sorted(gpu1) == sorted(gpu2) == sorted(cpu):
+        failures.append(f"different results: {sorted(set(gpu) ^ set(cpu))}")
+    worst = {"real": (0.0, ""), "degenerate": (0.0, "")}
+    for key in sorted(set(gpu) & set(cpu)):
+        g, c = gpu[key], cpu[key]
+        if type(g) is not type(c):
+            failures.append(f"{key}: {type(g).__name__} on the card, {type(c).__name__} on the CPU")
+            continue
+        if not isinstance(g, Song):
+            continue
+        gv, cv = g.analysis.as_arr1(), c.analysis.as_arr1()
+        err = np.abs(gv - cv)
+        if not np.isfinite(gv).all():
+            failures.append(f"{key}: non-finite features")
+        rerun = np.abs(gv - gpu2[key].analysis.as_arr1()).max()
+        if key in DEGENERATE:
+            kind, limit = "degenerate", 2e-2
+            if int(np.argmax(gv[10:20])) != int(np.argmax(cv[10:20])):
+                failures.append(f"{key}: dominant chroma differs")
+        else:
+            kind, limit = "real", 1e-4
+        if err.max() > worst[kind][0]:
+            worst[kind] = (float(err.max()), key)
+        print(f"  {pathlib.Path(key).relative_to(DATA)}: max {err.max():.3g} (feature "
+              f"{int(err.argmax())}, limit {limit:g}); rerun from decoded songs {rerun:.3g}")
+        if err.max() > limit:
+            failures.append(f"{key}: feature {int(err.argmax())} drift {err.max():.3g} > {limit:g}")
+    print(f"  worst real content {worst['real'][0]:.3g} ({worst['real'][1]}), worst degenerate "
+          f"{worst['degenerate'][0]:.3g} ({worst['degenerate'][1]})", flush=True)
+    if failures:
+        fail("files phase: " + "; ".join(failures))
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -224,7 +512,10 @@ def main() -> None:
     ap.add_argument("--seconds", type=float, default=300.0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm batch with torch.profiler")
+    ap.add_argument("--corpus", choices=("default", "full"), default="default",
+                    help="files phase: the default set, or every fixture of the drift corpus")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -420,6 +711,8 @@ def main() -> None:
     missing = [k for k in results if launches.get(k, 0) < 1]
     if missing:
         fail(f"kernels not launched on the main path: {missing} (counts {launches})")
+    if any(launches.get(k, 0) for k in UNFUSED_ROUTE):
+        fail(f"the 5-min bucket took the unfused tuning route (counts {launches})")
     for k in results:
         results[k]["launches"] = launches[k]
     torch.cuda.reset_peak_memory_stats()
@@ -465,7 +758,17 @@ def main() -> None:
           f"(CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
     if d_syn > 2e-2 or not same_argmax:
         fail("synthetic song drift")
+    del x, lens, frame_mask, v2, v2b, v1
+    torch.cuda.empty_cache()
 
+    # ---- long buckets: the unfused tuning route --------------------------
+    long_phase(rng, results, card, 8, 420.0, record_json=True)
+    long_phase(rng, results, card, 2, 1260.0, record_json=False)
+
+    # ---- files -----------------------------------------------------------
+    files_phase(args.corpus, card)
+
+    print(f"smoke run: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": list(results.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,13 +45,24 @@ def test_no_environment_switches():
         assert "environ" not in path.read_text(), path
 
 
-@pytest.mark.parametrize("entry", ["analyze_samples", "build_analyzer", "analyze_batch", "song"])
+@pytest.mark.parametrize(
+    "entry",
+    [
+        "analyze_samples", "build_analyzer", "analyze_batch", "song",
+        "song_with_options", "song_from_path", "analyze_paths", "cue",
+        "analyze_paths_batched",
+    ],
+)
 def test_default_device_raises_without_cuda(monkeypatch, entry):
-    from bliss_tpu_torch import Song
+    from bliss_tpu_torch import AnalysisOptions, Song
+    from bliss_tpu_torch.cue import BlissCue
+    from bliss_tpu_torch.io.batch import analyze_paths_batched
+    from bliss_tpu_torch.io.decoder import DefaultDecoder
     from bliss_tpu_torch.models import analyzer as TA
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros(20000, np.float32)
+    wav = REPO / "tests" / "data" / "piano.wav"
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "analyze_samples":
             TA.analyze_samples(x, x.shape[0])
@@ -59,8 +70,18 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
             TA.build_analyzer()(x)
         elif entry == "analyze_batch":
             TA.analyze_batch(x[None], [x.shape[0]])
-        else:
+        elif entry == "song":
             Song.analyze(x)
+        elif entry == "song_with_options":
+            Song.analyze_with_options(x, AnalysisOptions())
+        elif entry == "song_from_path":
+            DefaultDecoder.song_from_path(wav)
+        elif entry == "analyze_paths":
+            DefaultDecoder.analyze_paths([wav])
+        elif entry == "cue":
+            BlissCue.songs_from_path(DefaultDecoder, REPO / "tests" / "data" / "testcue.cue")
+        else:
+            list(analyze_paths_batched(DefaultDecoder, [wav]))
 
 
 def test_cuda_path_is_f32_only():
@@ -80,6 +101,8 @@ def test_cuda_path_is_f32_only():
         ("ct_stft.cu", "pallas_dft.py:_make_ct_fused_kernel"),
         ("tuning.cu", "pallas_select.py:"),
         ("tuning.cu", "pallas_hist.py:"),
+        ("tuning.cu", "pallas_select.py:39 _make_bisect8_kernel"),
+        ("tuning.cu", "pallas_hist.py:45 _make_kernel"),
     ],
 )
 def test_kernel_sources_name_what_they_replace(source, replaces):
