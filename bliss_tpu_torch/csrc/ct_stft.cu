@@ -1,11 +1,19 @@
-// STFT magnitudes straight from the reflect-padded signal (chroma 8192/2205).
+// STFT magnitudes straight from the reflect-padded signal (chroma 8192/2205),
+// and the same transform over frames that already lie in device memory.
 //
-// Replaces the TPU kernel bliss_tpu/ops/pallas_dft.py:_make_ct_fused_kernel
-// (via pallas_stft_mags_ct_fused): frame f of song b is
+// ct_stft_launch replaces the TPU kernel
+// bliss_tpu/ops/pallas_dft.py:_make_ct_fused_kernel (via
+// pallas_stft_mags_ct_fused): frame f of song b is
 // padded[b, f*hop : f*hop + W] times the periodic Hann window, and the output
 // holds |X[k]| for k in [0, W/2]. Framing happens inside the kernel, so no
 // framed copy of the signal (W/hop ~ 3.7x the signal) is ever written to
 // device memory, which was the point of the TPU kernel.
+//
+// ct_frames_launch replaces bliss_tpu/ops/pallas_dft.py:_make_ct_kernel (via
+// pallas_stft_mags_ct): the input is a pre-framed [N, W] array (the
+// time-sharded long-song analyzer gathers its reflect frames across the shard
+// halo), row f is the frame. The two entries share one kernel body; only the
+// address of a frame's first sample differs.
 //
 // Transform: a real FFT of W points as a complex FFT of W/2 points
 // (z[m] = x[2m] + i*x[2m+1], radix-2 in shared memory) plus the standard
@@ -20,10 +28,11 @@
 // view without a transpose pass.
 //
 // Bound on the card: bytes. Per frame ~8.8 KB of signal in (shared by ~3.7
-// overlapping frames) and 16 KB of magnitudes out, against ~270k f32
-// operations; the output write dominates. Design: one 512-thread block per
-// frame; loads are coalesced sample runs, and the only device-memory write is
-// the contiguous magnitude row.
+// overlapping frames; 32 KB when pre-framed) and 16 KB of magnitudes out,
+// against ~270k f32 operations; the memory traffic dominates. Design: one
+// 512-thread block per frame, frames on grid.x only when pre-framed (N passes
+// 65,535 at an hour of audio); loads are coalesced sample runs, and the only
+// device-memory write is the contiguous magnitude row.
 #include "fft_common.cuh"
 
 namespace {
@@ -31,8 +40,11 @@ namespace {
 constexpr int kMaxHalf = 4096;  // complex points: windows up to 8192
 constexpr int kThreads = 512;
 
+// kPreFramed: `src` is [n_frames, W] and blockIdx.y is 0; else `src` is the
+// padded signal [batch, t_len] and frame f starts at f*hop.
+template <bool kPreFramed>
 __global__ void __launch_bounds__(kThreads)
-ct_stft_kernel(const float* __restrict__ padded, long long t_len, int n_frames,
+ct_mags_kernel(const float* __restrict__ src, long long t_len, int n_frames,
                int hop, int log2w, const float* __restrict__ win,
                const float* __restrict__ tw_re, const float* __restrict__ tw_im,
                float* __restrict__ out) {
@@ -43,9 +55,10 @@ ct_stft_kernel(const float* __restrict__ padded, long long t_len, int n_frames,
   const int m = w >> 1;
   const int log2m = log2w - 1;
   const int f = blockIdx.x;
-  const long long first = static_cast<long long>(f) * hop;
-  const float* xs = padded + static_cast<long long>(blockIdx.y) * t_len + first;
-  const long long avail = t_len - first;
+  const long long first =
+      static_cast<long long>(f) * (kPreFramed ? w : hop);
+  const float* xs = src + static_cast<long long>(blockIdx.y) * t_len + first;
+  const long long avail = kPreFramed ? w : t_len - first;
 
   for (int n = threadIdx.x; n < w; n += kThreads) {
     const float v = n < avail ? xs[n] * win[n] : 0.0f;
@@ -92,7 +105,20 @@ extern "C" int ct_stft_launch(const float* padded, int batch, long long t_len,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_frames, batch);
-  ct_stft_kernel<<<grid, kThreads, 0, stream>>>(padded, t_len, n_frames, hop,
-                                                 log2w, win, tw_re, tw_im, out);
+  ct_mags_kernel<false><<<grid, kThreads, 0, stream>>>(
+      padded, t_len, n_frames, hop, log2w, win, tw_re, tw_im, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ct_frames_launch(const float* frames, int n_frames, int log2w,
+                                const float* win, const float* tw_re,
+                                const float* tw_im, float* out,
+                                cudaStream_t stream) {
+  if (n_frames <= 0) return 0;
+  if (log2w < 2 || (1 << (log2w - 1)) > kMaxHalf) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ct_mags_kernel<true><<<n_frames, kThreads, 0, stream>>>(
+      frames, 0, n_frames, 0, log2w, win, tw_re, tw_im, out);
   return static_cast<int>(cudaGetLastError());
 }

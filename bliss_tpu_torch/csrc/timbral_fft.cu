@@ -20,16 +20,16 @@
 // ~14k f32 operations per frame put the operation bound slightly above the
 // byte bound. Design: one 256-thread block per tile of 16 frames (one thread
 // per kept bin), the whole frame and its transform live in 4 KB of shared
-// memory, and the rolloff prefix sum is a warp-shuffle scan, so nothing but
-// the 5 output floats per frame touches device memory.
-#include "fft_common.cuh"
+// memory, and the rolloff prefix sum is a warp-shuffle scan
+// (timbral_rows.cuh), so nothing but the 5 output floats per frame touches
+// device memory.
+#include "timbral_rows.cuh"
 
 namespace {
 
 constexpr int kWin = 512;
 constexpr int kLog2Win = 9;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = bliss::kRowThreads;
 constexpr int kFramesPerBlock = 16;
 
 __global__ void __launch_bounds__(kThreads)
@@ -39,12 +39,9 @@ timbral_fft_kernel(const float* __restrict__ x, long long t_len, int n_frames,
                    const float* __restrict__ tw_im, float* __restrict__ out) {
   __shared__ float re[kWin];
   __shared__ float im[kWin];
-  __shared__ float part[3][kWarps];
-  __shared__ float warp_energy[kWarps];
+  __shared__ bliss::RowScratch rows;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const float* xs = x + static_cast<long long>(blockIdx.y) * t_len;
   float* os = out + static_cast<long long>(blockIdx.y) * n_frames * 5;
   const int f0 = blockIdx.x * kFramesPerBlock;
@@ -68,50 +65,10 @@ timbral_fft_kernel(const float* __restrict__ x, long long t_len, int n_frames,
     const float mr = re[k];
     const float mi = im[k];
     const float mag = sqrtf(mr * mr + mi * mi);
-    const float sq = mag * mag;
-
-    float cum = sq;  // inclusive scan within the warp
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, cum, o);
-      if (lane >= o) cum += y;
-    }
-    const float s_total = bliss::warp_sum(mag);
-    const float s_weighted = bliss::warp_sum(mag * static_cast<float>(tid));
-    const float s_log = bliss::warp_sum(log2f(mag));
-    if (lane == 31) warp_energy[warp] = cum;
-    if (lane == 0) {
-      part[0][warp] = s_total;
-      part[1][warp] = s_weighted;
-      part[2][warp] = s_log;
-    }
-    __syncthreads();
-
-    // the same left-to-right order for the prefix and the total, so the
-    // last slot's running sum equals `energy` exactly, as a cumsum's would
-    float before = 0.0f;
-    float energy = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w == warp) before = energy;
-      energy += warp_energy[w];
-    }
-    cum += before;
-    const float target = energy * 0.95f;
-    const int below = __syncthreads_count(cum < target);
-
-    if (tid == 0) {
-      float total = 0.0f, weighted = 0.0f, logsum = 0.0f;
-      for (int w = 0; w < kWarps; ++w) {
-        total += part[0][w];
-        weighted += part[1][w];
-        logsum += part[2][w];
-      }
-      float* o = os + static_cast<long long>(f) * 5;
-      o[0] = total;
-      o[1] = weighted;
-      o[2] = static_cast<float>(below);
-      o[3] = logsum;
-      o[4] = energy;
-    }
+    // the next frame's loads end in a __syncthreads() before `rows` is
+    // written again
+    bliss::timbral_row_store(mag, rows,
+                             os + static_cast<long long>(f) * 5);
   }
 }
 

@@ -2,10 +2,12 @@
 of bliss_tpu/models/analyzer.py).
 
 Every descriptor reads one on-device `[B, T]` buffer of zero-padded songs
-with per-song valid lengths. On CUDA the path is f32 and runs the five
+with per-song valid lengths. On CUDA the path is f32 and runs the
 hand-written kernels; on the CPU (only when the caller passes
 `device="cpu"`) each kernel's plain version runs instead, with the chroma
-stage at f64 by default for golden parity.
+stage at f64 by default for golden parity. Every entry point takes
+`routes` (`bliss_tpu_torch.routes.Routes`): which kernel carries each
+descriptor's transform; the default is the card's analysis path.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from ..errors import AnalysisError
+from ..routes import DEFAULT as DEFAULT_ROUTES
+from ..routes import Routes
 from ..tables import Tables, default_tables
 from . import chroma as chroma_model
 from . import loudness as loudness_model
@@ -56,10 +60,13 @@ def analyze_tensor(
     version: int = 2,
     dtype=torch.float32,
     tables: Tables | None = None,
+    routes: Routes = DEFAULT_ROUTES,
 ) -> torch.Tensor:
     """`[B, T]` samples + `[B]` valid lengths -> `[B, 23|20]` f32 features
     on the signal's device, ordered [tempo, zcr, centroid x2, rolloff x2,
     flatness x2, loudness x2, chroma...] (src/song/mod.rs:493-506)."""
+    if not isinstance(routes, Routes):
+        raise TypeError(f"routes: expected a Routes, got {type(routes).__name__}")
     dev = signal.device
     t = signal.shape[-1]
     lengths = lengths.to(device=dev, dtype=torch.int64)
@@ -70,11 +77,13 @@ def analyze_tensor(
         0.0,
     )
     tab = (tables or default_tables()).on(dev)
-    tempo = tempo_model.tempo_feature(signal, lengths, tab)
+    tempo = tempo_model.tempo_feature(signal, lengths, tab, route=routes.tempo)
     zcr = timbral_model.zcr_feature(signal, lengths)
-    spectral = timbral_model.spectral_features(signal, lengths, tab)
+    spectral = timbral_model.spectral_features(signal, lengths, tab, routes.timbral)
     loud = loudness_model.loudness_features(signal, lengths)
-    chroma = chroma_model.chroma_features(signal, lengths, version, dtype, tab)
+    chroma = chroma_model.chroma_features(
+        signal, lengths, version, dtype, tab, routes.chroma_stft
+    )
     return torch.cat(
         [tempo.unsqueeze(-1), zcr.unsqueeze(-1), spectral, loud, chroma.to(torch.float32)],
         dim=-1,
@@ -88,13 +97,14 @@ def analyze_samples(
     dtype=None,
     device="cuda",
     tables: Tables | None = None,
+    routes: Routes = DEFAULT_ROUTES,
 ) -> torch.Tensor:
     """One song: `[T]` samples (+ valid `length`) -> `[23|20]` f32 features
     on `device`."""
     dev = resolve_device(device)
     x = torch.as_tensor(np.asarray(signal, dtype=np.float32), device=dev).reshape(1, -1)
     lengths = torch.as_tensor([int(length)], device=dev)
-    return analyze_tensor(x, lengths, version, _resolve_dtype(dev, dtype), tables)[0]
+    return analyze_tensor(x, lengths, version, _resolve_dtype(dev, dtype), tables, routes)[0]
 
 
 def bucket_length(n: int, min_bucket: int = 1 << 14) -> int:
@@ -110,7 +120,13 @@ def bucket_length(n: int, min_bucket: int = 1 << 14) -> int:
     return p
 
 
-def build_analyzer(version: int = 2, dtype=None, device="cuda", tables: Tables | None = None):
+def build_analyzer(
+    version: int = 2,
+    dtype=None,
+    device="cuda",
+    tables: Tables | None = None,
+    routes: Routes = DEFAULT_ROUTES,
+):
     """Host-facing analyzer: `analyze(np_samples) -> np.ndarray[features]`,
     padding each song to its `bucket_length`."""
     dev = resolve_device(device)
@@ -125,7 +141,7 @@ def build_analyzer(version: int = 2, dtype=None, device="cuda", tables: Tables |
         buf[:n] = samples
         x = torch.as_tensor(buf, device=dev).reshape(1, -1)
         lengths = torch.as_tensor([n], device=dev)
-        return analyze_tensor(x, lengths, version, dtype, tables)[0].cpu().numpy()
+        return analyze_tensor(x, lengths, version, dtype, tables, routes)[0].cpu().numpy()
 
     return analyze
 
@@ -137,6 +153,7 @@ def analyze_batch(
     dtype=None,
     device="cuda",
     tables: Tables | None = None,
+    routes: Routes = DEFAULT_ROUTES,
 ) -> np.ndarray:
     """Analyze a `[B, T]` zero-padded batch of songs with valid `lengths`
     in one pass of the device path -> `[B, 23|20]`."""
@@ -146,5 +163,7 @@ def analyze_batch(
     if lengths.size and lengths.min() < MIN_SAMPLES:
         raise AnalysisError("empty or too short song.")
     x = torch.as_tensor(np.asarray(batch, dtype=np.float32), device=dev)
-    out = analyze_tensor(x, torch.as_tensor(lengths, device=dev), version, dtype, tables)
+    out = analyze_tensor(
+        x, torch.as_tensor(lengths, device=dev), version, dtype, tables, routes
+    )
     return out.cpu().numpy()

@@ -414,9 +414,11 @@ def chroma_features(
     version: int = 2,
     dtype=torch.float64,
     tables: dict | None = None,
+    stft_route: str = "fused",
 ) -> torch.Tensor:
     """Full chroma descriptor `[B, T] -> [B, 13]` (v2) or `[B, 10]` (v1)
-    (ChromaDesc::do_ + get_values, src/chroma.rs:73-126)."""
+    (ChromaDesc::do_ + get_values, src/chroma.rs:73-126); `stft_route`
+    is `ops.spectral.stft`'s `route`."""
     t = signal.shape[-1]
     n_frames_max = int(n_frames_stft(t, HOP_SIZE))
     n_valid = n_frames_stft(lengths, HOP_SIZE)
@@ -425,7 +427,7 @@ def chroma_features(
     twiddle = tables["twiddle_8192"] if tables else None
     spectrum = stft(
         signal, WINDOW_SIZE, HOP_SIZE, lengths=lengths, n_frames=n_frames_max,
-        dtype=dtype, window=window, twiddle=twiddle,
+        dtype=dtype, window=window, twiddle=twiddle, route=stft_route,
     )  # [B, 4097, F]
     if uses_fused_tuning(n_frames_max, dtype):
         tuning = _estimate_tuning_fused(spectrum, frame_mask, WINDOW_SIZE)

@@ -19,7 +19,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.dft_kernels import onset_function, specflux  # noqa: F401 (re-export)
+from .. import routes
+from ..ops.dft_kernels import (  # noqa: F401 (re-export)
+    TEMPO_OFFSET,
+    frame_dft_mags,
+    onset_function,
+    specflux,
+)
 from ..ops.reductions import masked_quantile_midpoint, normalize_range
 from ..ops.windows import frame_signal, n_frames_strided
 from ..tables import beat_weights, bt_rayparam, tempo_geometry
@@ -477,15 +483,23 @@ def tempo_feature(
     lengths: torch.Tensor,
     tables: dict | None = None,
     sample_rate: int = 22050,
+    route: str = "fused",
 ) -> torch.Tensor:
     """Full tempo pipeline `[B, T] -> [B]`: normalized median BPM
-    (BPMDesc, src/temporal.rs:32-85)."""
+    (BPMDesc, src/temporal.rs:32-85); `route` picks the onset's kernel
+    (`routes.CHOICES["tempo"]`)."""
+    routes.check("tempo", route)
     t = signal.shape[-1]
     h_max = int(n_frames_strided(t, WINDOW_SIZE, HOP_SIZE))
     h_valid = n_frames_strided(lengths, WINDOW_SIZE, HOP_SIZE)
     window = tables["hann_512"] if tables else None
     twiddle = tables["twiddle_512"] if tables else None
-    onset = specflux(signal, h_max, window, twiddle)  # [B, H]
+    if route == "mags":
+        onset = onset_function(
+            frame_dft_mags(signal, WINDOW_SIZE, HOP_SIZE, TEMPO_OFFSET, h_max, window, twiddle)
+        )
+    else:
+        onset = specflux(signal, h_max, window, twiddle)  # [B, H]
     thresh = thresholded_series(onset)
     silent = silence_flags_blocked(signal, h_max)
     consts = _bt_constants(signal.device, tables, sample_rate)

@@ -3,23 +3,31 @@
 src/aubio.rs:16-265).
 
 All 512/128 frames of a batch of songs go through one kernel launch that
-emits per-frame raw reductions (`ops/dft_kernels.timbral_fft`); the
-descriptors and their masked summaries are elementwise work on `[B, F]`.
+emits per-frame raw reductions (`ops/dft_kernels.timbral_fft`, or the
+kernel of another route of `routes.CHOICES["timbral"]`); the descriptors
+and their masked summaries are elementwise work on `[B, F]`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import routes
 from ..features import SAMPLE_RATE
-from ..ops.dft_kernels import TIMBRAL_OFFSET, timbral_fft, timbral_rows
+from ..ops.dft_kernels import (
+    TIMBRAL_OFFSET,
+    frame_dft_mags,
+    timbral_fft,
+    timbral_flat,
+    timbral_rows,
+)
 from ..ops.reductions import (
     masked_mean,
     masked_std,
     normalize_range,
     zero_crossing_count,
 )
-from ..ops.spectral import framed_pvoc_mags
+from ..ops.spectral import _buggy_256_layout, framed_pvoc_mags
 from ..ops.windows import n_frames_strided
 
 WINDOW_SIZE = 512  # src/timbral.rs:40
@@ -77,16 +85,29 @@ def summarize_spectral(centroid_hz, rolloff_hz, flatness, mask) -> torch.Tensor:
 
 
 def spectral_features(
-    signal: torch.Tensor, lengths: torch.Tensor, tables: dict | None = None
+    signal: torch.Tensor,
+    lengths: torch.Tensor,
+    tables: dict | None = None,
+    route: str = "fft",
 ) -> torch.Tensor:
-    """Six timbral features `[B, 6]` of `signal [B, T]` (valid `lengths`)."""
+    """Six timbral features `[B, 6]` of `signal [B, T]` (valid `lengths`);
+    `route` picks the kernel (`routes.CHOICES["timbral"]`)."""
+    routes.check("timbral", route)
     t = signal.shape[-1]
     n_frames_max = int(n_frames_strided(t, WINDOW_SIZE, HOP_SIZE))
     n_valid = n_frames_strided(lengths, WINDOW_SIZE, HOP_SIZE)
     mask = torch.arange(n_frames_max, device=signal.device) < n_valid.unsqueeze(-1)
     window = tables["hann_512"] if tables else None
     twiddle = tables["twiddle_512"] if tables else None
-    raw = timbral_fft(signal, n_frames_max, window, twiddle)  # [B, F, 5]
+    if route == "mags":
+        mags = frame_dft_mags(
+            signal, WINDOW_SIZE, HOP_SIZE, TIMBRAL_OFFSET, n_frames_max, window, twiddle
+        )  # [B, F, 257]
+        raw = timbral_rows(_buggy_256_layout(mags, WINDOW_SIZE))
+    elif route == "flat":
+        raw = timbral_flat(signal, n_frames_max, window, twiddle)
+    else:
+        raw = timbral_fft(signal, n_frames_max, window, twiddle)  # [B, F, 5]
     centroid_hz, rolloff_hz, flatness = frame_descriptors_from_raw(raw)
     return summarize_spectral(centroid_hz, rolloff_hz, flatness, mask)
 

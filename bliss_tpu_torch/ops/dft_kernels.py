@@ -1,13 +1,20 @@
 """DFT kernel wrappers (counterpart of bliss_tpu/ops/pallas_dft.py).
 
-Three kernels, each with its plain PyTorch version in this module:
+Six kernels, each with its plain PyTorch version in this module:
 
 - `timbral_fft`  (csrc/timbral_fft.cu): per-frame timbral reductions of
   the 512/128 stream, replacing `_make_timbral_fft_kernel`;
 - `specflux`     (csrc/specflux.cu): the SpecFlux onset of the 512/256
   stream, replacing `_make_specflux_kernel`;
 - `ct_stft_mags` (csrc/ct_stft.cu): STFT magnitudes framed in-kernel from
-  the reflect-padded signal, replacing `_make_ct_fused_kernel`.
+  the reflect-padded signal, replacing `_make_ct_fused_kernel`;
+- `ct_frames_mags` (csrc/ct_stft.cu): the same transform over pre-framed
+  `[N, W]` input, replacing `_make_ct_kernel`;
+- `frame_dft_mags` (csrc/frame_dft.cu): direct-DFT magnitudes of the
+  512-sample strided frames of a signal, replacing `_make_kernel`;
+- `timbral_flat` (csrc/frame_dft.cu): the timbral reductions of that
+  direct DFT with Neumaier-compensated chunk sums, replacing
+  `_make_timbral_kernel`.
 
 A wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
 tensor; there is no other switch. On CUDA it checks device, dtype, shape
@@ -24,7 +31,7 @@ import torch
 
 from . import _build
 from .spectral import framed_pvoc_mags, windowed_mags
-from .windows import _hann_np
+from .windows import _hann_np, frame_signal
 
 TIMBRAL_WINDOW, TIMBRAL_HOP, TIMBRAL_OFFSET = 512, 128, 384
 TEMPO_WINDOW, TEMPO_HOP, TEMPO_OFFSET = 512, 256, 256
@@ -52,7 +59,11 @@ def _resolve(signal, window_len, window, twiddle):
     return window, twiddle
 
 
-def _launch_frames(lib, fn_name, signal, n_frames, hop, offset, window, twiddle, out):
+def _launch_frames(
+    lib, fn_name, signal, n_frames, hop, offset, window, twiddle, out, counted=None
+):
+    """Launch one of the 512-point strided-frame kernels of `csrc/<lib>.cu`
+    and count it under `counted` (the library's name by default)."""
     dev = signal.device
     _build.require("signal", signal, torch.float32, 2, dev)
     _build.require("window", window, torch.float32, 1, dev)
@@ -65,8 +76,8 @@ def _launch_frames(lib, fn_name, signal, n_frames, hop, offset, window, twiddle,
         offset, _build.ptr(window), _build.ptr(twiddle[0]),
         _build.ptr(twiddle[1]), _build.ptr(out), _build.stream_ptr(dev),
     )
-    _build.check(lib, err)
-    _build.count_launch(lib)
+    _build.check(counted or lib, err)
+    _build.count_launch(counted or lib)
 
 
 # --------------------------------------------------------------------------
@@ -90,13 +101,16 @@ def timbral_rows(mags: torch.Tensor) -> torch.Tensor:
 
 
 def timbral_fft_plain(
-    signal: torch.Tensor, n_frames: int, window: torch.Tensor | None = None
+    signal: torch.Tensor,
+    n_frames: int,
+    window: torch.Tensor | None = None,
+    offset: int = TIMBRAL_OFFSET,
 ) -> torch.Tensor:
     """Plain version of `timbral_fft`: `torch.fft.rfft` magnitudes in the
     buggy 256-bin layout, then the five per-frame reductions."""
     return timbral_rows(
         framed_pvoc_mags(
-            signal, TIMBRAL_WINDOW, TIMBRAL_HOP, TIMBRAL_OFFSET, n_frames,
+            signal, TIMBRAL_WINDOW, TIMBRAL_HOP, offset, n_frames,
             buggy=True, window_values=window,
         )
     )
@@ -107,19 +121,22 @@ def timbral_fft(
     n_frames: int,
     window: torch.Tensor | None = None,
     twiddle: torch.Tensor | None = None,
+    offset: int = TIMBRAL_OFFSET,
 ) -> torch.Tensor:
     """Per-frame raw timbral reductions `[B, n_frames, 5]` of the 512/128
-    frames of `signal [B, T]`; frame f covers `signal[128f - 384, 128f + 128)`
-    with zeros outside the song."""
+    frames of `signal [B, T]`; frame f covers `signal[128f - offset, 128f -
+    offset + 512)` with zeros outside the buffer. The default offset gives
+    the song's own frames `[128f - 384, 128f + 128)`; a halo-extended shard
+    passes the (negative) offset of its first frame."""
     window, twiddle = _resolve(signal, TIMBRAL_WINDOW, window, twiddle)
     if not _build.on_cuda(signal):
-        return timbral_fft_plain(signal, n_frames, window)
+        return timbral_fft_plain(signal, n_frames, window, offset)
     out = torch.empty(
         (signal.shape[0], n_frames, 5), dtype=torch.float32, device=signal.device
     )
     _launch_frames(
         "timbral_fft", "timbral_fft_launch", signal, n_frames, TIMBRAL_HOP,
-        TIMBRAL_OFFSET, window, twiddle, out,
+        offset, window, twiddle, out,
     )
     return out
 
@@ -229,3 +246,172 @@ def ct_stft_mags(
     _build.check("ct_stft", err)
     _build.count_launch("ct_stft")
     return out.transpose(1, 2)
+
+
+def ct_frames_mags_plain(
+    frames: torch.Tensor, window: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain version of `ct_frames_mags`: `torch.fft.rfft` magnitudes of
+    the windowed rows, returned as the `[bins, N]` view."""
+    return windowed_mags(frames, window).transpose(0, 1)
+
+
+def ct_frames_mags(
+    frames: torch.Tensor,
+    window: torch.Tensor | None = None,
+    twiddle: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """|rDFT| of the Hann-windowed rows of pre-framed `frames [N, W]`, W a
+    power of two in [4, 8192]. Returns `[W//2+1, N]`, a transposed view of
+    frame-major storage, as `ct_stft_mags` does."""
+    if frames.dim() != 2:
+        raise ValueError(f"frames: expected [N, W], got shape {tuple(frames.shape)}")
+    n, window_length = frames.shape
+    log2w = window_length.bit_length() - 1
+    if window_length != 1 << log2w or not 4 <= window_length <= 8192:
+        raise ValueError(f"window {window_length}: a power of two in [4, 8192]")
+    window, twiddle = _resolve(frames, window_length, window, twiddle)
+    if not _build.on_cuda(frames):
+        return ct_frames_mags_plain(frames, window)
+    dev = frames.device
+    _build.require("frames", frames, torch.float32, 2, dev)
+    _build.require("window", window, torch.float32, 1, dev)
+    _build.require("twiddle", twiddle, torch.float32, 2, dev)
+    n_bins = window_length // 2 + 1
+    if window.shape[0] != window_length or twiddle.shape != (2, n_bins):
+        raise ValueError("window/twiddle size does not match the frame width")
+    out = torch.empty((n, n_bins), dtype=torch.float32, device=dev)
+    fn = _build.function("ct_stft", "ct_frames_launch", [_P, _I, _I, _P, _P, _P, _P, _P])
+    err = fn(
+        _build.ptr(frames), n, log2w, _build.ptr(window), _build.ptr(twiddle[0]),
+        _build.ptr(twiddle[1]), _build.ptr(out), _build.stream_ptr(dev),
+    )
+    _build.check("ct_frames", err)
+    _build.count_launch("ct_frames")
+    return out.transpose(0, 1)
+
+
+# --------------------------------------------------------------------------
+# direct DFT of 512-sample strided frames: magnitudes, and the flat timbral rows
+# --------------------------------------------------------------------------
+
+
+def frame_dft_mags_plain(
+    signal: torch.Tensor,
+    hop: int,
+    offset: int,
+    n_frames: int,
+    window: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of `frame_dft_mags`: `framed_pvoc_mags` (framing by
+    `unfold`, `torch.fft.rfft`)."""
+    return framed_pvoc_mags(
+        signal, TEMPO_WINDOW, hop, offset, n_frames, window_values=window
+    )
+
+
+def frame_dft_mags(
+    signal: torch.Tensor,
+    window_length: int,
+    hop: int,
+    offset: int,
+    n_frames: int,
+    window: torch.Tensor | None = None,
+    twiddle: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Hann-windowed |DFT| `[B, n_frames, 257]` of the 512-sample strided
+    frames of `signal [B, T]`; frame f covers `signal[f*hop - offset, f*hop
+    - offset + 512)` with zeros before 0 and past `T`. `hop` is a multiple
+    of 4 up to 256 (the analysis uses 128 and 256); `offset` may be
+    negative (a halo-extended shard)."""
+    if window_length != TEMPO_WINDOW:
+        raise ValueError(f"window {window_length}: the kernel is written for 512")
+    if hop <= 0 or hop > 256 or hop % 4:
+        raise ValueError(f"hop {hop}: a multiple of 4 in (0, 256]")
+    window, twiddle = _resolve(signal, window_length, window, twiddle)
+    if not _build.on_cuda(signal):
+        return frame_dft_mags_plain(signal, hop, offset, n_frames, window)
+    out = torch.empty(
+        (signal.shape[0], n_frames, window_length // 2 + 1),
+        dtype=torch.float32, device=signal.device,
+    )
+    _launch_frames(
+        "frame_dft", "frame_dft_mags_launch", signal, n_frames, hop, offset,
+        window, twiddle, out, counted="frame_dft_mags",
+    )
+    return out
+
+
+def _flat_dft_matrices(twiddle: torch.Tensor):
+    """`[512, 256]` cos and -sin matrices of the flat timbral DFT in the
+    buggy layout (column 255 carries the Nyquist phase), looked up by the
+    integer phase `(n*k) mod 512` in the `[2, 257]` twiddle table
+    (bliss_tpu/ops/pallas_dft.py:464-471)."""
+    w = TIMBRAL_WINDOW
+    dev = twiddle.device
+    cos_t = torch.cat([twiddle[0], twiddle[0][1 : w // 2].flip(0)])
+    sin_t = torch.cat([twiddle[1], -twiddle[1][1 : w // 2].flip(0)])
+    n = torch.arange(w, device=dev).unsqueeze(1)
+    k = torch.arange(w // 2, device=dev)
+    k = torch.where(k == w // 2 - 1, w // 2, k).unsqueeze(0)
+    phase = (n * k) % w
+    return cos_t[phase], sin_t[phase]
+
+
+def timbral_flat_plain(
+    signal: torch.Tensor,
+    n_frames: int,
+    window: torch.Tensor | None = None,
+    twiddle: torch.Tensor | None = None,
+    chunk_frames: int = 1 << 16,
+) -> torch.Tensor:
+    """Plain version of `timbral_flat`: per 128-sample chunk of a frame one
+    f32 `torch.matmul` with the chunk's rows of the DFT matrices, the four
+    partial sums combined with the Neumaier step of
+    bliss_tpu/ops/pallas_dft.py:118-123, then `timbral_rows`; blocks of
+    `chunk_frames` frames bound the framed copy."""
+    window, twiddle = _resolve(signal, TIMBRAL_WINDOW, window, twiddle)
+    cos_m, sin_m = _flat_dft_matrices(twiddle)
+    width = TIMBRAL_HOP
+    frames = frame_signal(signal, TIMBRAL_WINDOW, TIMBRAL_HOP, TIMBRAL_OFFSET, n_frames)
+
+    def comp_add(s, comp, p):
+        t = s + p
+        comp = comp + torch.where(torch.abs(s) >= torch.abs(p), (s - t) + p, (p - t) + s)
+        return t, comp
+
+    rows = []
+    for lo in range(0, n_frames, chunk_frames):
+        block = frames[:, lo : lo + chunk_frames] * window
+        re = im = re_c = im_c = block.new_zeros(())
+        for c in range(TIMBRAL_WINDOW // width):
+            piece = block[..., c * width : (c + 1) * width]
+            re, re_c = comp_add(re, re_c, torch.matmul(piece, cos_m[c * width : (c + 1) * width]))
+            im, im_c = comp_add(im, im_c, torch.matmul(piece, sin_m[c * width : (c + 1) * width]))
+        re, im = re + re_c, im + im_c
+        rows.append(timbral_rows(torch.sqrt(re * re + im * im)))
+    return torch.cat(rows, dim=1)
+
+
+def timbral_flat(
+    signal: torch.Tensor,
+    n_frames: int,
+    window: torch.Tensor | None = None,
+    twiddle: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-frame raw timbral reductions `[B, n_frames, 5]` of the 512/128
+    frames of `signal [B, T]` from a direct f32 DFT (not an FFT): the
+    counterpart of the JAX package's flat kernel. Its flatness sits farther
+    from the f32-FFT reference than `timbral_fft`'s on quiet content, so
+    it is not the default route."""
+    window, twiddle = _resolve(signal, TIMBRAL_WINDOW, window, twiddle)
+    if not _build.on_cuda(signal):
+        return timbral_flat_plain(signal, n_frames, window, twiddle)
+    out = torch.empty(
+        (signal.shape[0], n_frames, 5), dtype=torch.float32, device=signal.device
+    )
+    _launch_frames(
+        "frame_dft", "timbral_flat_launch", signal, n_frames, TIMBRAL_HOP,
+        TIMBRAL_OFFSET, window, twiddle, out, counted="timbral_flat",
+    )
+    return out

@@ -1,16 +1,24 @@
 """Spectral transforms (counterpart of bliss_tpu/ops/spectral.py).
 
-`stft` is the chroma STFT; on a CUDA tensor it runs the hand-written
+`stft` is the chroma STFT; on a CUDA tensor it runs a hand-written
 kernel of `ops/dft_kernels.py`, on a CPU tensor that kernel's plain
-version. The phase-vocoder helpers below are plain PyTorch: they are the
-building blocks of the kernels' plain versions and of the tests.
+version. The phase-vocoder helpers below are plain PyTorch on every
+device: they are the building blocks of the kernels' plain versions and
+of the tests, so no kernel may be reached through them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .windows import frame_signal, hann_periodic, n_frames_stft, reflect_pad_signal
+from .. import routes
+from .windows import (
+    frame_signal,
+    frame_signal_reflect,
+    hann_periodic,
+    n_frames_stft,
+    reflect_pad_signal,
+)
 
 
 def windowed_mags(frames: torch.Tensor, window: torch.Tensor | None = None) -> torch.Tensor:
@@ -31,25 +39,36 @@ def stft(
     dtype=None,
     window: torch.Tensor | None = None,
     twiddle: torch.Tensor | None = None,
+    route: str = "fused",
 ) -> torch.Tensor:
     """Hann-windowed, reflect-padded magnitude STFT of `signal [B, T]`
     (src/utils.rs:26-64): f32 window and FFT, magnitudes optionally cast
     to `dtype`. Returns `[B, window//2 + 1, n_frames]`.
 
     `lengths` (per song) and `n_frames` allow masked operation over a
-    padded buffer; by default the whole buffer is the song.
+    padded buffer; by default the whole buffer is the song. `route`
+    (`routes.CHOICES["chroma_stft"]`): `"fused"` frames the padded signal
+    inside the kernel, `"framed"` writes the `[B, F, W]` frames to device
+    memory first and transforms them with `ct_frames_mags`.
     """
     from . import dft_kernels
 
+    routes.check("chroma_stft", route)
     b, t = signal.shape
     if lengths is None:
         lengths = [t] * b
     if n_frames is None:
         n_frames = int(n_frames_stft(t, hop_length))
-    padded = reflect_pad_signal(signal, lengths, window_length)
-    mags = dft_kernels.ct_stft_mags(
-        padded, window_length, hop_length, n_frames, window, twiddle
-    )
+    if route == "framed":
+        frames = frame_signal_reflect(signal, lengths, window_length, hop_length, n_frames)
+        mags = dft_kernels.ct_frames_mags(
+            frames.reshape(b * n_frames, window_length), window, twiddle
+        ).unflatten(1, (b, n_frames)).permute(1, 0, 2)
+    else:
+        padded = reflect_pad_signal(signal, lengths, window_length)
+        mags = dft_kernels.ct_stft_mags(
+            padded, window_length, hop_length, n_frames, window, twiddle
+        )
     if dtype is not None:
         mags = mags.to(dtype)
     return mags

@@ -32,7 +32,31 @@
    of the drift corpus), with decoding (the batch driver's decode threads, then
    one decode worker) and from the decoded songs, and holds each vector against the port's CPU f64 path on the
    same decoded samples: <= 1e-4 per feature on real content, <= 2e-2 and
-   the same dominant chroma on the pure-tone and dyad synthetics.
+   the same dominant chroma on the pure-tone and dyad synthetics; then
+   the `timbral="flat"` route on the same decoded real-content songs and
+   the MP3 golden fixture, its drift beside the default route's (reported);
+9. routes: holds `frame_dft_mags` (hops 128 and 256) and `timbral_flat`
+   against their plain versions on the 8 x 5-minute batch, then drives one
+   `analyze_batch` per non-default route (`timbral="flat"`; `timbral="mags"`
+   with `tempo="mags"`; `chroma_stft="framed"`) with the counts reset,
+   checks each route's launches, prints each vector's distance to the
+   default route's (tempo must be equal, chroma within 1e-5; the timbral
+   features of the direct-DFT routes are reported), and the flatness drift
+   of `"flat"` against `timbral_fft` and the CPU f64 path on piano.wav and
+   the batch;
+10. long song, full width: one synthetic 60-minute song (79,380,000
+   samples, 8 shards of 10,485,760): holds `ct_frames_mags` at
+   `[38,056, 8192]` and `frame_dft_mags` at `[8, 10,506,554]` against
+   their plain versions and library calls, drives
+   `parallel.longsong.sharded_analyze_samples` with the counts reset (the
+   two and `timbral_fft` must launch), holds the vector against the
+   bucketed `analyze_batch` (B = 1) of the same song (<= 2e-5 per feature,
+   tempo equal; up to the 1e-4 contract a gap is printed as a fault, above
+   it the run fails), prints warm seconds and peak memory of both routes,
+   holds a 21-minute song's sharded vector against the CPU f64 path
+   (<= 2e-2, same dominant chroma), and runs `analyze_paths_batched` over
+   that song as a WAV file with `longsong_samples` set, equal to the
+   bucketed result at 2e-5.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, then the
 result line. Any failed phase exits non-zero. Imports nothing of JAX.
@@ -248,12 +272,13 @@ def profile_batch(batch, lengths) -> None:
         print(f"  {dt / 1e3:9.3f} ms {count:7d}x {key[:90]}")
 
 
-def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bool) -> None:
+def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bool) -> np.ndarray:
     """One long bucket on the card: the unfused route's kernels at full
     width against their plain versions (times, bounds, library calls),
     the batch through `analyze_batch` with the launch counts reset, the
     unfused tuning against the fused route's on the same spectra, and (for
-    the 7-minute batch) one song against the CPU f64 path."""
+    the 7-minute batch) one song against the CPU f64 path. Returns the
+    batch's first song."""
     from bliss_tpu_torch.models import chroma as CH
     from bliss_tpu_torch.models.analyzer import analyze_batch, analyze_samples, bucket_length
     from bliss_tpu_torch.ops import _build
@@ -398,6 +423,7 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
               flush=True)
         if d > 2e-2 or not same_argmax:
             fail(f"{label}: synthetic song drift")
+    return batch[0, :n].copy()
 
 
 def files_phase(corpus: str, card: str) -> None:
@@ -502,7 +528,350 @@ def files_phase(corpus: str, card: str) -> None:
           f"{worst['degenerate'][0]:.3g} ({worst['degenerate'][1]})", flush=True)
     if failures:
         fail("files phase: " + "; ".join(failures))
+    flat_audit(decoded, gpu, cpu)
 
+
+def flat_audit(decoded: dict, gpu: dict, cpu: dict) -> None:
+    """The `timbral="flat"` route (the direct-DFT rows) on every decoded
+    real-content song of the files phase and on the MP3 golden fixture:
+    its drift from the CPU f64 path beside the default route's, per song
+    the worst feature and the worst of the two flatness features (6, 7).
+    Reported against the 1e-4 contract, not failed."""
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+    from bliss_tpu_torch.models.analyzer import analyze_samples
+    from bliss_tpu_torch.routes import Routes
+    from bliss_tpu_torch.song import Song
+
+    rows = []  # (flat max, flat flatness, fft max, fft flatness, name)
+    flat = Routes(timbral="flat")
+    for key in sorted(decoded):
+        if key in DEGENERATE or not isinstance(gpu.get(key), Song):
+            continue
+        x = decoded[key].sample_array
+        f = analyze_samples(x, x.shape[0], 2, device="cuda", routes=flat).cpu().numpy()
+        c, g = cpu[key].analysis.as_arr1(), gpu[key].analysis.as_arr1()
+        rows.append((np.abs(f - c).max(), np.abs(f - c)[6:8].max(), np.abs(g - c).max(),
+                     np.abs(g - c)[6:8].max(), str(pathlib.Path(key).relative_to(DATA))))
+    x = FallbackDecoder.decode(DATA / "s16_mono_22_5kHz.mp3").sample_array
+    c = analyze_samples(x, x.shape[0], 2, device="cpu").cpu().numpy()
+    f = analyze_samples(x, x.shape[0], 2, device="cuda", routes=flat).cpu().numpy()
+    g = analyze_samples(x, x.shape[0], 2, device="cuda").cpu().numpy()
+    rows.append((np.abs(f - c).max(), np.abs(f - c)[6:8].max(), np.abs(g - c).max(),
+                 np.abs(g - c)[6:8].max(), "s16_mono_22_5kHz.mp3"))
+    worst = max(rows)
+    over = [r[4] for r in rows if r[0] > 1e-4]
+    print(f"flat route vs CPU f64 over {len(rows)} real-content songs: worst feature drift "
+          f"{worst[0]:.3g} ({worst[4]}; the default route there {worst[2]:.3g}), worst flatness "
+          f"drift {max(r[1] for r in rows):.3g} (default route {max(r[3] for r in rows):.3g}); "
+          f"s16_mono_22_5kHz.mp3: flat {rows[-1][0]:.3g}, default {rows[-1][2]:.3g}; songs over "
+          f"the 1e-4 contract: {over or 'none'}", flush=True)
+
+
+def frame_span_stft(signal, hop: int, offset: int, n_frames: int, hann):
+    """One library call computing `frame_dft_mags`: `torch.stft` over the
+    span of the frames (zero history prepended where the offset is
+    positive), as `[B, F, 257]`."""
+    need = (n_frames - 1) * hop + 512
+    if offset > 0:
+        span = torch.nn.functional.pad(signal, (offset, max(need - offset - signal.shape[1], 0)))
+    else:
+        span = signal[:, -offset:]
+    return torch.stft(span[:, :need], 512, hop, window=hann, center=False,
+                      return_complex=True).abs().transpose(1, 2)
+
+
+def hold_frame_dft(x, hop: int, offset: int, n_frames: int, label: str) -> dict:
+    """`frame_dft_mags` against its plain version (1e-5 of each frame's
+    max) and `torch.stft`, with times and the bound of this shape."""
+    from bliss_tpu_torch.ops import dft_kernels as DK
+
+    got = DK.frame_dft_mags(x, 512, hop, offset, n_frames)
+    want = DK.frame_dft_mags_plain(x, hop, offset, n_frames)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel = (err.amax(-1) / want.amax(-1).clamp(min=1e-30)).max().item()
+    if not torch.isfinite(got).all() or rel > 1e-5:
+        fail(f"frame_dft_mags {label}: {rel:.3g} of each frame's max (limit 1e-5)")
+    hann = torch.hann_window(512, periodic=True, device=x.device)
+    lib = frame_span_stft(x, hop, offset, n_frames, hann)
+    lib_rel = ((lib - want).abs().amax(-1) / want.amax(-1).clamp(min=1e-30)).max().item()
+    if lib_rel > 1e-5:
+        fail(f"frame_dft_mags {label}: the library call computes another function ({lib_rel:.3g})")
+    n_fr = x.shape[0] * n_frames
+    out = {
+        "err": err.max().item(), "rel": rel,
+        "ms": time_ms(lambda: DK.frame_dft_mags(x, 512, hop, offset, n_frames), 10),
+        "plain_ms": time_ms(lambda: DK.frame_dft_mags_plain(x, hop, offset, n_frames), 3),
+        "library_ms": time_ms(lambda: frame_span_stft(x, hop, offset, n_frames, hann), 3),
+        "nbytes": x.numel() * 4 + n_fr * 257 * 4,
+        "ops": n_fr * (512 + 512 * 257 * 2 * 2),
+    }
+    bms, by = bound(out["nbytes"], out["ops"])
+    print(f"  frame_dft_mags {label} {list(got.shape)}: relative error {rel:.3g}, {out['ms']:.4f} ms "
+          f"(plain {out['plain_ms']:.4f}, torch.stft {out['library_ms']:.4f}, bound {bms:.4f} by "
+          f"{by})", flush=True)
+    return out
+
+
+def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int, card: str) -> None:
+    """The non-default routes on the 8 x 5-minute batch: their kernels
+    against the plain versions, one `analyze_batch` per route with the
+    launch counts reset, each vector's distance to the default route's."""
+    from bliss_tpu_torch.models.analyzer import analyze_batch, analyze_samples
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.ops import dft_kernels as DK
+    from bliss_tpu_torch.ops.windows import n_frames_strided
+    from bliss_tpu_torch.routes import Routes
+
+    b = x.shape[0]
+    nf = int(n_frames_strided(tpad, 512, 128))
+    nh = int(n_frames_strided(tpad, 512, 256))
+    hold_frame_dft(x, 128, 384, nf, "8 x 5-min hop 128")
+    hold_frame_dft(x, 256, 256, nh, "8 x 5-min hop 256")
+
+    # timbral_flat: [B, F, 5], held like timbral_fft (relative 1e-5, below
+    # +-1 on ties, the log2 sum through the geometric mean it gives; the
+    # plain version is the same near-exact DFT, so that too holds 1e-5)
+    got = DK.timbral_flat(x, nf)
+    want = DK.timbral_flat_plain(x, nf)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[~fin], want[~fin]):
+        fail("timbral_flat: non-finite entries differ from the plain version")
+    diff = torch.where(fin, (got - want).abs(), 0.0)
+    scale = torch.clamp(torch.where(fin, want.abs(), 0.0), min=1e-30)
+    rel = max((diff[..., c] / scale[..., c]).max().item() for c in (0, 1, 4))
+    below = diff[..., 2].max().item()
+    geo = (diff[..., 3] * math.log(2.0) / 256).max().item()
+    print(f"  timbral_flat relative error {rel:.3g}, geo_mean max {geo:.3g}, below max diff {below}",
+          flush=True)
+    if rel > 1e-5 or below > 1 or geo > 1e-5:
+        fail(f"timbral_flat vs plain: relative {rel:.3g}, geo_mean {geo:.3g} (limits 1e-5), "
+             f"below {below} (limit 1)")
+    record(
+        "timbral_flat", "bliss_tpu_torch/csrc/frame_dft.cu", "bliss_tpu/ops/pallas_dft.py:80",
+        diff[..., [0, 1, 4]].max().item(),
+        time_ms(lambda: DK.timbral_flat(x, nf), 10),
+        time_ms(lambda: DK.timbral_flat_plain(x, nf), 2),
+        x.numel() * 4 + b * nf * 5 * 4,
+        b * nf * (512 + 512 * 256 * 2 * 2 + 256 * 4 + 256 * 8), None,
+    )
+    # the frame-level flatness ingredient of the two timbral kernels
+    fft_rows = DK.timbral_fft(x, nf)
+    both = torch.isfinite(got[..., 3]) & torch.isfinite(fft_rows[..., 3])
+    gap = torch.where(both, (got[..., 3] - fft_rows[..., 3]).abs(), 0.0) * math.log(2.0) / 256
+    print(f"  timbral_flat vs timbral_fft, per-frame geometric mean: max {gap.max().item():.3g}, "
+          f"mean {gap.mean().item():.3g} (relative)", flush=True)
+    del got, want, diff, scale, fin, fft_rows, both, gap
+    torch.cuda.empty_cache()
+
+    groups = {"tempo": slice(0, 1), "zcr": slice(1, 2), "timbral": slice(2, 8),
+              "loudness": slice(8, 10), "chroma": slice(10, 23)}
+    for routes, need in (
+        (Routes(timbral="flat"), {"timbral_flat": 1}),
+        (Routes(timbral="mags", tempo="mags"), {"frame_dft_mags": 2}),
+        (Routes(chroma_stft="framed"), {"ct_frames": 1}),
+    ):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = analyze_batch(batch, lengths, version=2, device="cuda", routes=routes)
+        first_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        analyze_batch(batch, lengths, version=2, device="cuda", routes=routes)
+        warm_s = time.perf_counter() - t0
+        dist = {k: float(np.abs(out[:, sl] - v2[:, sl]).max()) for k, sl in groups.items()}
+        print(f"route {routes}: first {first_s:.3f} s, warm {warm_s:.3f} s; launches {launches}; "
+              f"max distance to the default route {dist} [{card}]", flush=True)
+        if any(launches.get(k, 0) != v for k, v in need.items()):
+            fail(f"route {routes}: launches {launches}, expected {need}")
+        if out.shape != v2.shape or not np.isfinite(out).all():
+            fail(f"route {routes}: features {out.shape}, finite {np.isfinite(out).all()}")
+        if dist["tempo"] != 0.0 or dist["zcr"] != 0.0 or dist["loudness"] != 0.0:
+            fail(f"route {routes}: tempo, zcr or loudness differ from the default route's")
+        if dist["chroma"] > 1e-5:
+            fail(f"route {routes}: chroma {dist['chroma']:.3g} from the default route's (limit 1e-5)")
+        if routes.timbral == "fft" and dist["timbral"] != 0.0:
+            fail(f"route {routes}: timbral features changed")
+        if routes.timbral == "flat":
+            results["timbral_flat"]["launches"] = launches["timbral_flat"]
+            flat_batch = out
+    # flatness (features 6, 7: mean and std) of the "flat" route against the
+    # FFT-structured default and the CPU f64 path
+    d_fft = np.abs(flat_batch[:, 6:8] - v2[:, 6:8]).max()
+    d_cpu = np.abs(flat_batch[0, 6:8] - cpu0[6:8]).max()
+    d_cpu_fft = np.abs(v2[0, 6:8] - cpu0[6:8]).max()
+    print(f"flatness drift, 8 x 5-min: flat vs fft route max {d_fft:.3g} over the batch; song 0 vs "
+          f"CPU f64: flat {d_cpu:.3g}, fft {d_cpu_fft:.3g}", flush=True)
+    n = piano.shape[0]
+    p_fft = analyze_samples(piano, n, 2, device="cuda").cpu().numpy()
+    p_flat = analyze_samples(piano, n, 2, device="cuda", routes=Routes(timbral="flat")).cpu().numpy()
+    p_cpu = analyze_samples(piano, n, 2, device="cpu").cpu().numpy()
+    print(f"flatness drift, piano.wav: flat vs fft route {np.abs(p_flat[6:8] - p_fft[6:8]).max():.3g}; "
+          f"vs CPU f64: flat {np.abs(p_flat[6:8] - p_cpu[6:8]).max():.3g}, fft "
+          f"{np.abs(p_fft[6:8] - p_cpu[6:8]).max():.3g}; all timbral features, flat vs CPU f64 "
+          f"{np.abs(p_flat[2:8] - p_cpu[2:8]).max():.3g} (contract 1e-4, reported)", flush=True)
+
+
+def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.0,
+                   shards: int = 8) -> None:
+    """The time-sharded analyzer at full width (see the module docstring)."""
+    import tempfile
+
+    from bliss_tpu_torch.io.batch import analyze_paths_batched
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+    from bliss_tpu_torch.models.analyzer import analyze_batch, analyze_samples, bucket_length
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.ops import dft_kernels as DK
+    from bliss_tpu_torch.parallel import longsong as LS
+    from bliss_tpu_torch.song import Song
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    n = int(round(minutes * 60 * 22050))
+    song = synth_song(rng, n)
+    tpad = bucket_length(n, 1 << 17)
+    print(f"long song: {minutes:g} min = {n} samples (bucket {tpad}), {shards} shards, data in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- the two kernels at this song's shapes ----------------------------
+    ext, shard_len = LS._extended_shards(song, n, tpad, shards, dev)
+    fps_max, hps = shard_len // LS.HOP + 2, shard_len // LS.B_HOP
+    f_lo = (torch.arange(shards, device=dev) * shard_len + LS.HOP - 1) // LS.HOP
+    frames = LS._chroma_local_frames(
+        ext, LS._shard_base(shards, shard_len, dev), f_lo, fps_max, n
+    ).reshape(shards * fps_max, LS.WINDOW)
+    got = DK.ct_frames_mags(frames)
+    want = DK.ct_frames_mags_plain(frames)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel = (err.amax(0) / want.amax(0).clamp(min=1e-30)).max().item()
+    if not torch.isfinite(got).all() or rel > 1e-5:
+        fail(f"ct_frames_mags vs plain: {rel:.3g} of each frame's max (limit 1e-5)")
+    hann = torch.hann_window(LS.WINDOW, periodic=True, device=dev)
+    n_fr = frames.shape[0]
+    record(
+        "ct_frames", "bliss_tpu_torch/csrc/ct_stft.cu", "bliss_tpu/ops/pallas_dft.py:862",
+        err.max().item(),
+        time_ms(lambda: DK.ct_frames_mags(frames), 5),
+        time_ms(lambda: DK.ct_frames_mags_plain(frames), 3),
+        n_fr * LS.WINDOW * 4 + n_fr * 4097 * 4,
+        n_fr * (LS.WINDOW + rfft_ops(LS.WINDOW) + 4097 * 4),
+        time_ms(lambda: torch.fft.rfft(frames * hann).abs(), 3),
+    )
+    print(f"  ct_frames {list(frames.shape)}: relative error {rel:.3g} of the frame max", flush=True)
+    del frames, got, want, err
+    torch.cuda.empty_cache()
+    held = hold_frame_dft(ext, LS.B_HOP, 2048 - LS.HALO, hps + 7, f"{shards} shards hop 256")
+    record(
+        "frame_dft_mags", "bliss_tpu_torch/csrc/frame_dft.cu", "bliss_tpu/ops/pallas_dft.py:53",
+        held["err"], held["ms"], held["plain_ms"], held["nbytes"], held["ops"], held["library_ms"],
+    )
+    del ext
+    torch.cuda.empty_cache()
+
+    # ---- the sharded analyzer through its entry point ----------------------
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        first = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        warm = time.perf_counter() - t0
+        return out, first, warm, torch.cuda.max_memory_allocated() / 1e9, launches
+
+    _build.reset_launches()
+    sharded, first_s, warm_s, peak, launches = timed(
+        lambda: LS.sharded_analyze_samples(song, n, 2, shards=shards, device="cuda")
+    )
+    print(f"  sharded ({shards} shards): first {first_s:.3f} s, warm {warm_s:.3f} s, peak "
+          f"{peak:.2f} GB; launches {launches} [{card}]", flush=True)
+    need = ("ct_frames", "frame_dft_mags", "timbral_fft", "histogram_int_plane")
+    if any(launches.get(k, 0) < 1 for k in need):
+        fail(f"long song: kernels not launched on the sharded path (counts {launches})")
+    for k in ("ct_frames", "frame_dft_mags"):
+        results[k]["launches"] = launches[k]
+    buf = np.zeros((1, tpad), np.float32)
+    buf[0, :n] = song
+    _build.reset_launches()
+    bucketed, b_first, b_warm, b_peak, b_launches = timed(
+        lambda: analyze_batch(buf, [n], version=2, device="cuda")[0]
+    )
+    print(f"  bucketed (B = 1): first {b_first:.3f} s, warm {b_warm:.3f} s, peak {b_peak:.2f} GB; "
+          f"launches {b_launches} [{card}]", flush=True)
+    from bliss_tpu_torch.models import tempo as TP
+    from bliss_tpu_torch.tables import default_tables
+
+    x1 = torch.as_tensor(buf, device=dev)
+    lens1 = torch.as_tensor([n], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TP.tempo_feature(x1, lens1, default_tables().on(dev))
+    torch.cuda.synchronize()
+    print(f"  tempo stage alone on the bucketed buffer (warm): {time.perf_counter() - t0:.3f} s of "
+          f"the bucketed route's {b_warm:.3f} s", flush=True)
+    del x1, lens1
+    gap = np.abs(sharded - bucketed)
+    print(f"  sharded vs bucketed: max {gap.max():.3g} (feature {int(gap.argmax())}), tempo "
+          f"{sharded[0]:.7f} vs {bucketed[0]:.7f}; per feature {[float(f'{g:.2g}') for g in gap]}",
+          flush=True)
+    if sharded.shape != (23,) or not np.isfinite(sharded).all():
+        fail(f"long song: features {sharded.shape}, finite {np.isfinite(sharded).all()}")
+    if sharded[0] != bucketed[0]:
+        fail("long song: sharded tempo differs from the bucketed analyzer's")
+    if gap.max() > 1e-4:
+        fail(f"long song: sharded vs bucketed {gap.max():.3g} > 1e-4 (feature {int(gap.argmax())})")
+    if gap.max() > 2e-5:
+        print(f"  FAULT (within the 1e-4 contract): feature {int(gap.argmax())} is {gap.max():.3g} "
+              f"from the bucketed analyzer's, above the 2e-5 of the CPU tests", flush=True)
+    del buf, song
+
+    # ---- a 21-minute song: the card's sharded vector vs the CPU f64 path ---
+    n21 = song21.shape[0]
+    got21 = LS.sharded_analyze_samples(song21, n21, 2, shards=shards, device="cuda")
+    t0 = time.perf_counter()
+    cpu21 = analyze_samples(song21, n21, 2, device="cpu").cpu().numpy()
+    d = np.abs(got21 - cpu21).max()
+    same_argmax = int(np.argmax(got21[10:])) == int(np.argmax(cpu21[10:]))
+    print(f"  21-min song sharded on the card vs CPU f64: max {d:.3g} (limit 2e-2), dominant chroma "
+          f"{'agrees' if same_argmax else 'DIFFERS'} (CPU run {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if d > 2e-2 or not same_argmax:
+        fail("long song: 21-minute synthetic song drift")
+
+    # ---- the long-song route of analyze_paths_batched over a file ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = pathlib.Path(tmp) / "long.wav"
+        with wave.open(str(wav), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(22050)
+            w.writeframes(np.clip(song21 * 32767, -32768, 32767).astype("<i2").tobytes())
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        routed = dict(analyze_paths_batched(
+            FallbackDecoder, [wav], device="cuda", longsong_samples=20 * 60 * 22050,
+            longsong_shards=shards,
+        ))[wav]
+        routed_s = time.perf_counter() - t0
+        r_launches = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        plain = dict(analyze_paths_batched(FallbackDecoder, [wav], device="cuda"))[wav]
+        p_launches = dict(_build.LAUNCHES)
+    if not isinstance(routed, Song) or not isinstance(plain, Song):
+        fail(f"long-song file route: {routed!r} {plain!r}")
+    d = np.abs(routed.analysis.as_arr1() - plain.analysis.as_arr1()).max()
+    print(f"  analyze_paths_batched over a 21-min WAV: long-song route {routed_s:.2f} s (decode included), vs the "
+          f"bucketed route max {d:.3g} (limit 2e-5)", flush=True)
+    if r_launches.get("ct_frames", 0) < 1 or p_launches.get("ct_frames", 0):
+        fail(f"long-song file route: launches routed {r_launches}, bucketed {p_launches}")
+    if d > 2e-5:
+        fail(f"long-song file route: routed vs bucketed {d:.3g} > 2e-5")
 
 
 def main() -> None:
@@ -758,12 +1127,20 @@ def main() -> None:
           f"(CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
     if d_syn > 2e-2 or not same_argmax:
         fail("synthetic song drift")
-    del x, lens, frame_mask, v2, v2b, v1
+    del lens, frame_mask, v2b, v1
+
+    # ---- the non-default routes -------------------------------------------
+    routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad, card)
+    del x, v2, batch
     torch.cuda.empty_cache()
 
     # ---- long buckets: the unfused tuning route --------------------------
     long_phase(rng, results, card, 8, 420.0, record_json=True)
-    long_phase(rng, results, card, 2, 1260.0, record_json=False)
+    song21 = long_phase(rng, results, card, 2, 1260.0, record_json=False)
+
+    # ---- one 60-minute song, time-sharded ---------------------------------
+    longsong_phase(rng, record, results, song21, card)
+    del song21
 
     # ---- files -----------------------------------------------------------
     files_phase(args.corpus, card)

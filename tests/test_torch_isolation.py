@@ -34,6 +34,20 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_scan_covers_every_package_of_the_port():
+    scanned = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in (
+        "bliss_tpu_torch/parallel/__init__.py",
+        "bliss_tpu_torch/parallel/longsong.py",
+        "bliss_tpu_torch/routes.py",
+        "bliss_tpu_torch/io/batch.py",
+        "bliss_tpu_torch/ops/dft_kernels.py",
+    ):
+        assert rel in scanned
+    for init in (REPO / "bliss_tpu_torch").rglob("__init__.py"):
+        assert any(p.parent == init.parent and p != init for p in PORT_FILES)
+
+
 def test_forbidden_rule():
     assert _forbidden("jax.numpy") and _forbidden("bliss_tpu.ops.windows")
     assert not _forbidden("bliss_tpu_torch.ops") and not _forbidden("torch")
@@ -103,12 +117,21 @@ def test_cuda_path_is_f32_only():
         ("tuning.cu", "pallas_hist.py:"),
         ("tuning.cu", "pallas_select.py:39 _make_bisect8_kernel"),
         ("tuning.cu", "pallas_hist.py:45 _make_kernel"),
+        ("ct_stft.cu", "pallas_dft.py:_make_ct_kernel"),
+        ("frame_dft.cu", "pallas_dft.py:53 _make_kernel"),
+        ("frame_dft.cu", "pallas_dft.py:80 _make_timbral_kernel"),
     ],
 )
 def test_kernel_sources_name_what_they_replace(source, replaces):
     text = (REPO / "bliss_tpu_torch" / "csrc" / source).read_text()
     assert replaces in text
     assert "Bound on the card" in text
+
+
+def test_every_kernel_source_is_built():
+    from bliss_tpu_torch.ops import _build
+
+    assert sorted(_build.SOURCES) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
 
 
 def _run_smoke(cwd: pathlib.Path):
