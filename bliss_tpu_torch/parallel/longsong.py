@@ -20,10 +20,13 @@ small things cross shards:
     semantics of the unsharded path.
 
 **The mesh axis of the JAX package is a leading tensor axis here.** All
-shards lie on one device as `[D, shard_len]`, every stage runs over all
-of them at once, and the three collectives are the three small functions
-`halo_exchange`, `psum` and `all_gather` over that axis; spreading the
-shards over several cards changes their bodies and nothing else.
+shards lie on one device as `[D, shard_len]`, and the three collectives
+are the three small functions `halo_exchange`, `psum` and `all_gather`
+over that axis; spreading the shards over several cards changes their
+bodies and nothing else. The chroma frames, the one large intermediate
+(`[fps_max, 8192]` a shard, 3.7 times the shard's samples), are gathered
+and transformed one shard at a time, so only one shard's frames are alive
+at once; the other stages run over all shards in one call.
 
 Frame ownership is derived from SAMPLE ranges: shard `d` owns chroma
 frame `f` iff `f*hop` lies in its sample range, so a frame's window never
@@ -32,8 +35,8 @@ number of frames per shard drifts by ~hop per shard and overruns the halo
 on long signals: a 3e-4 parity breach at 45 s on 8 shards in the JAX
 package's history).
 
-Kernels on this path: the chroma frames `[D, fps_max, 8192]` gathered
-across the halo go through `ct_frames_mags`; the tempo magnitudes
+Kernels on this path: each shard's chroma frames `[fps_max, 8192]`,
+gathered across the halo, go through `ct_frames_mags`; the tempo magnitudes
 `[D, hps + 7, 257]` come from `frame_dft_mags`; the tuning histogram is
 `histogram_int_plane`. The timbral rows come from `timbral_fft` over the
 halo-extended shards. This departs from bliss_tpu/parallel/longsong.py:
@@ -55,7 +58,7 @@ from ..models.analyzer import _resolve_dtype, bucket_length, resolve_device
 from ..ops.dft_kernels import ct_frames_mags, frame_dft_mags, timbral_fft
 from ..ops.reductions import (
     _float_sort_key,
-    _u32_key_to_float,
+    _key_to_float,
     masked_quantile_midpoint_all,
     normalize_range,
 )
@@ -123,19 +126,21 @@ def _float_key(x: torch.Tensor) -> torch.Tensor:
 
 def _global_kth_smallest(values, mask, k):
     """Exact k-th smallest masked f32 value across all shards `[D, ...]`:
-    32-round bisection on the float's order-isomorphic unsigned key, one
-    `psum` of a per-shard count per round."""
+    32-round bisection on the float's order-isomorphic integer key (the
+    signed int32 form, which orders as `_float_key` does and takes half
+    its memory), one `psum` of a per-shard count per round."""
     d_count = values.shape[0]
     mask = mask.reshape(d_count, -1)
-    keys = torch.where(mask, _float_key(values).reshape(d_count, -1), 0xFFFFFFFF)
-    lo = torch.zeros((), dtype=torch.int64, device=values.device)
-    hi = torch.full((), 0xFFFFFFFF, dtype=torch.int64, device=values.device)
+    keys = _float_sort_key(values.to(torch.float32)).reshape(d_count, -1)
+    info = torch.iinfo(torch.int32)
+    lo = torch.full((), info.min, dtype=torch.int64, device=values.device)
+    hi = torch.full((), info.max, dtype=torch.int64, device=values.device)
     for _ in range(32):
         mid = lo + (hi - lo) // 2
-        cnt = psum(((keys <= mid) & mask).sum(-1))
+        cnt = psum(((keys <= mid.to(torch.int32)) & mask).sum(-1))
         take_low = cnt >= k + 1
         lo, hi = torch.where(take_low, lo, mid + 1), torch.where(take_low, mid, hi)
-    return _u32_key_to_float(lo, torch.float32)
+    return _key_to_float(lo, torch.float32)
 
 
 def _global_median_midpoint(values, mask):
@@ -163,30 +168,31 @@ def _shard_base(d_count: int, shard_len: int, device) -> torch.Tensor:
 
 
 def _chroma_local_frames(ext, base, f_lo, fps_max, length):
-    """Each shard's chroma STFT frames `[D, fps_max, WINDOW]` from
-    `ext [D, E]` = [left | shard | right].
+    """One shard's chroma STFT frames `[fps_max, WINDOW]` from its
+    `ext [E]` = [left | shard | right], whose first sample lies at global
+    position `base`.
 
     Global frame `f` starts at `f*HOP - _PAD` in reflect-padded
-    coordinates; shard `d` owns frames `[f_lo[d], f_lo[d] + own)`
-    (ownership by sample range), computes `fps_max` frames and masks the
-    tail. The reflect indices (around 0 and `length`) are taken on GLOBAL
-    positions before the shard offset; they stay within one halo of the
-    owning shard since `_PAD + HOP < HALO`."""
+    coordinates; the shard owns frames `[f_lo, f_lo + own)` (ownership by
+    sample range), computes `fps_max` frames and masks the tail. The
+    reflect indices (around 0 and `length`) are taken on GLOBAL positions
+    before the shard offset; they stay within one halo of the owning shard
+    since `_PAD + HOP < HALO`. Positions fit int32 for songs up to 12 hours."""
     dev = ext.device
+    i32 = torch.int32
     pos = (
-        (torch.arange(fps_max, device=dev).view(1, -1, 1) + f_lo.view(-1, 1, 1)) * HOP
-        + torch.arange(WINDOW, device=dev).view(1, 1, -1)
+        (torch.arange(fps_max, dtype=i32, device=dev) + f_lo.to(i32)).unsqueeze(-1) * HOP
+        + torch.arange(WINDOW, dtype=i32, device=dev)
         - _PAD
     )
     idx = torch.where(pos < 0, -pos, pos)
     idx = torch.where(idx >= length, 2 * (length - 1) - idx, idx)
-    local = torch.clamp(idx - base.view(-1, 1, 1), 0, ext.shape[1] - 1)
-    return torch.gather(ext, 1, local.flatten(1)).view(pos.shape)
+    return ext[torch.clamp(idx - base.to(i32), 0, ext.shape[0] - 1)]
 
 
-def _chroma_raw(ext, shard_len, fps_max, length, dtype, tables) -> torch.Tensor:
-    """Raw `[10]` interval features of the time-sharded chroma pipeline
-    (exact cross-shard reductions; see the module docstring)."""
+def _chroma_spectrum(ext, shard_len, fps_max, length, dtype, tables):
+    """Every shard's chroma STFT magnitudes `[D, 4097, fps_max]` and the
+    mask `[D, fps_max]` of the frames it owns that lie inside the song."""
     dev = ext.device
     d_count = ext.shape[0]
     d = torch.arange(d_count, device=dev)
@@ -198,26 +204,45 @@ def _chroma_raw(ext, shard_len, fps_max, length, dtype, tables) -> torch.Tensor:
     j = torch.arange(fps_max, device=dev)
     own = j < (f_hi - f_lo).unsqueeze(-1)
 
-    frames = _chroma_local_frames(ext, base, f_lo, fps_max, length)
-    mags = ct_frames_mags(
-        frames.reshape(d_count * fps_max, WINDOW), tables["hann_8192"], tables["twiddle_8192"]
-    )  # [4097, D * fps_max]
-    del frames
-    spectrum = mags.unflatten(1, (d_count, fps_max)).permute(1, 0, 2).to(dtype)
+    # one shard's frames alive at a time; each [4097, fps_max] result is a
+    # view of frame-major storage, stacked as such
+    spectrum = torch.stack([
+        ct_frames_mags(
+            _chroma_local_frames(ext[i], base[i], f_lo[i], fps_max, length),
+            tables["hann_8192"], tables["twiddle_8192"],
+        ).transpose(0, 1)
+        for i in range(d_count)
+    ]).transpose(1, 2).to(dtype)
 
     frame_ids = j + f_lo.unsqueeze(-1)
-    valid = own & (frame_ids < n_frames_stft(length, HOP))  # [D, fps_max]
+    valid = own & (frame_ids < n_frames_stft(length, HOP))
+    return spectrum, valid
 
-    # --- tuning: local peaks, global median + histogram
+
+def _tuning_planes(spectrum, valid):
+    """The tuning estimate's per-shard planes: the histogram-bin plane of
+    the peaks at or above the GLOBAL median peak magnitude (the input of
+    `histogram_int_plane`), and the peak mask."""
     pitches, pmags, peak_mask = chroma_model.pip_track(spectrum, valid, WINDOW)
     pos_mask = peak_mask & (pitches > 0.0)
     threshold = _global_median_midpoint(pmags, pos_mask)
     sel = pos_mask & (pmags >= threshold)
-    counts = psum(histogram_int_plane(chroma_model.tuning_bin_plane(pitches, sel), 100))
+    return chroma_model.tuning_bin_plane(pitches, sel), peak_mask
+
+
+def _chroma_raw(ext, shard_len, fps_max, length, dtype, tables) -> torch.Tensor:
+    """Raw `[10]` interval features of the time-sharded chroma pipeline
+    (exact cross-shard reductions; see the module docstring)."""
+    d_count = ext.shape[0]
+    spectrum, valid = _chroma_spectrum(ext, shard_len, fps_max, length, dtype, tables)
+
+    # --- tuning: local peaks, global median + histogram
+    bin_plane, peak_mask = _tuning_planes(spectrum, valid)
+    counts = psum(histogram_int_plane(bin_plane, 100))
     any_peak = psum(peak_mask.flatten(1).sum(-1)) > 0
     tuning = (-50.0 + torch.argmax(counts).to(dtype)) / 100.0
     tuning = torch.where(any_peak, tuning, 0.0)
-    del pitches, pmags, peak_mask, pos_mask, sel
+    del bin_plane, peak_mask
 
     # --- chroma + interval features, local frames then one global mean
     chroma = chroma_model.chroma_stft_from_spectrum(
@@ -384,8 +409,9 @@ def sharded_analyze_samples(
     # ---- zcr: neighbour-sample sign changes, exact integer count; the
     # previous sample of a shard's first comes from its left halo
     prev = torch.cat([left[:, -1:], sig[:, :-1]], dim=1)
-    gi = d.unsqueeze(-1) * shard_len + torch.arange(shard_len, device=dev)
-    change = ((sig > 0) != (prev > 0)) & (gi >= 1) & (gi < length)
+    j = torch.arange(shard_len, device=dev)
+    start = (d * shard_len).unsqueeze(-1)  # global position j + start in [1, length)
+    change = ((sig > 0) != (prev > 0)) & (j >= 1 - start) & (j < length - start)
     crossings = psum(change.sum(-1))
     rate = crossings.to(torch.float32) / float(np.float32(length))
     zcr = normalize_range(rate, 0.0, 1.0).to(torch.float32)

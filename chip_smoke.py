@@ -35,8 +35,9 @@
    the same dominant chroma on the pure-tone and dyad synthetics; then
    the `timbral="flat"` route on the same decoded real-content songs and
    the MP3 golden fixture, its drift beside the default route's (reported);
-9. routes: holds `frame_dft_mags` (hops 128 and 256) and `timbral_flat`
-   against their plain versions on the 8 x 5-minute batch, then drives one
+9. routes: holds `frame_dft_mags` (hops 128 and 256), `timbral_flat` and
+   `ct_frames_mags` (the framed route's `[8 F, 8192]`) against their plain
+   versions on the 8 x 5-minute batch, then drives one
    `analyze_batch` per non-default route (`timbral="flat"`; `timbral="mags"`
    with `tempo="mags"`; `chroma_stft="framed"`) with the counts reset,
    checks each route's launches, prints each vector's distance to the
@@ -45,18 +46,22 @@
    of `"flat"` against `timbral_fft` and the CPU f64 path on piano.wav and
    the batch;
 10. long song, full width: one synthetic 60-minute song (79,380,000
-   samples, 8 shards of 10,485,760): holds `ct_frames_mags` at
-   `[38,056, 8192]` and `frame_dft_mags` at `[8, 10,506,554]` against
-   their plain versions and library calls, drives
-   `parallel.longsong.sharded_analyze_samples` with the counts reset (the
-   two and `timbral_fft` must launch), holds the vector against the
+   samples, 8 shards of 10,485,760): holds every kernel of the sharded
+   path at the shapes that path gives it: `ct_frames_mags` at one shard's
+   `[4,757, 8192]` (first, middle and last shard), `frame_dft_mags` at
+   `[8, 10,506,554]` and `timbral_fft` on the same halo-extended shards
+   with its negative frame offset, each against its plain version (the
+   first two against library calls too), the global median's counting
+   rounds against a sort, and `histogram_int_plane` on the sharded tuning
+   plane; drives `parallel.longsong.sharded_analyze_samples` with the
+   counts reset (the four must launch), holds the vector against the
    bucketed `analyze_batch` (B = 1) of the same song (<= 2e-5 per feature,
    tempo equal; up to the 1e-4 contract a gap is printed as a fault, above
-   it the run fails), prints warm seconds and peak memory of both routes,
-   holds a 21-minute song's sharded vector against the CPU f64 path
-   (<= 2e-2, same dominant chroma), and runs `analyze_paths_batched` over
-   that song as a WAV file with `longsong_samples` set, equal to the
-   bucketed result at 2e-5.
+   it the run fails), prints warm seconds and peak memory of both routes
+   and the bucketed route's time by stage, holds a 21-minute song's
+   sharded vector against the CPU f64 path (<= 2e-2, same dominant
+   chroma), and runs `analyze_paths_batched` over that song as a WAV file
+   with `longsong_samples` set, equal to the bucketed result at 2e-5.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, then the
 result line. Any failed phase exits non-zero. Imports nothing of JAX.
@@ -202,9 +207,57 @@ def rfft_ops(n: int) -> float:
     return 2.5 * n * math.log2(n)
 
 
-def stage_breakdown(x, lens, frame_mask, n_hops: int) -> None:
+def timbral_frame_ops() -> float:
+    """Operations the timbral rows need per 512-sample frame: the window
+    product, an FFT, 256 magnitudes and the five reductions over them."""
+    return 512 + rfft_ops(512) + 256 * 4 + 256 * 8
+
+
+def hold_timbral_fft(x, n_frames: int, offset: int, label: str) -> float:
+    """`timbral_fft` against its plain version on `x [B, T]` with the first
+    frame at `-offset`; returns the largest absolute error of the total,
+    weighted and energy columns.
+
+    Total, weighted, energy: relative 1e-5; below within +-1 (ties on the
+    95% energy line). The log2 sum can sit near 0, so it is held through
+    the geometric mean exp2(sum / 256) it gives, |d sum| * ln 2 / 256:
+    that sum weighs every near-silent bin, whose magnitude two different
+    f32 FFTs round differently (both sit ~3e-6 from f64 on typical
+    frames, more on the rare frame with a bin near zero), so its limit is
+    the 1e-4 feature contract; its max and mean are printed."""
+    from bliss_tpu_torch.ops import dft_kernels as DK
+
+    got = DK.timbral_fft(x, n_frames, offset=offset)
+    want = DK.timbral_fft_plain(x, n_frames, offset=offset)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[~fin], want[~fin]):
+        fail(f"timbral_fft {label}: non-finite entries differ from the plain version")
+    diff = torch.where(fin, (got - want).abs(), 0.0)
+    scale = torch.clamp(torch.where(fin, want.abs(), 0.0), min=1e-30)
+    geo = diff[..., 3] * math.log(2.0) / 256
+    rels = {
+        "total": (diff[..., 0] / scale[..., 0]).max().item(),
+        "weighted": (diff[..., 1] / scale[..., 1]).max().item(),
+        "energy": (diff[..., 4] / scale[..., 4]).max().item(),
+    }
+    rel = max(rels.values())
+    below = diff[..., 2].max().item()
+    geo_max = geo.max().item()
+    print(f"  timbral_fft {label} {list(got.shape)}, offset {offset}: relative errors {rels}, "
+          f"geo_mean max {geo_max:.3g} mean {geo.mean().item():.3g}, below max diff {below}",
+          flush=True)
+    if rel > 1e-5 or below > 1 or geo_max > 1e-4:
+        fail(f"timbral_fft {label} vs plain: relative {rel:.3g} (limit 1e-5), geo_mean "
+             f"{geo_max:.3g} (limit 1e-4), below {below} (limit 1)")
+    return diff[..., [0, 1, 4]].max().item()
+
+
+def stage_breakdown(x, lens, frame_mask, n_hops: int, warm_up: bool = True) -> None:
     """Warm host-clock time of each descriptor stage alone on the batch,
-    synchronized before and after."""
+    synchronized before and after, plus the batch's upload from pageable
+    host memory. `warm_up=False` times the first call of each stage (for a
+    batch whose stages already ran and take seconds)."""
     from bliss_tpu_torch.models import chroma as CH
     from bliss_tpu_torch.models import loudness as LD
     from bliss_tpu_torch.models import tempo as TP
@@ -222,9 +275,13 @@ def stage_breakdown(x, lens, frame_mask, n_hops: int) -> None:
     consts = TP._bt_constants(dev, tab)
     h_valid = n_frames_strided(lens, 512, 256)
     spectrum = stft(xs, 8192, 2205, lens, frame_mask.shape[1])
+    fused = CH.uses_fused_tuning(frame_mask.shape[1], torch.float32)
+    tuning = CH._estimate_tuning_fused if fused else CH.estimate_tuning
+    host = x.cpu().numpy()
 
     def wall_ms(fn) -> float:
-        fn()
+        if warm_up:
+            fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -238,7 +295,8 @@ def stage_breakdown(x, lens, frame_mask, n_hops: int) -> None:
         "loudness": wall_ms(lambda: LD.loudness_features(xs, lens)),
         "chroma": wall_ms(lambda: CH.chroma_features(xs, lens, 2, torch.float32, tab)),
         "chroma.stft": wall_ms(lambda: stft(xs, 8192, 2205, lens, frame_mask.shape[1])),
-        "chroma.tuning": wall_ms(lambda: CH._estimate_tuning_fused(spectrum, frame_mask, 8192)),
+        "chroma.tuning": wall_ms(lambda: tuning(spectrum, frame_mask, 8192)),
+        "upload": wall_ms(lambda: torch.as_tensor(host, device=dev)),
     }
     print("stages (ms, warm, each alone): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
@@ -582,7 +640,9 @@ def frame_span_stft(signal, hop: int, offset: int, n_frames: int, hann):
 
 def hold_frame_dft(x, hop: int, offset: int, n_frames: int, label: str) -> dict:
     """`frame_dft_mags` against its plain version (1e-5 of each frame's
-    max) and `torch.stft`, with times and the bound of this shape."""
+    max) and `torch.stft`, with times and the bound of this shape. The
+    bound counts what the function needs (an FFT a frame), not what the
+    kernel's direct DFT spends: that floor is printed beside it."""
     from bliss_tpu_torch.ops import dft_kernels as DK
 
     got = DK.frame_dft_mags(x, 512, hop, offset, n_frames)
@@ -604,12 +664,43 @@ def hold_frame_dft(x, hop: int, offset: int, n_frames: int, label: str) -> dict:
         "plain_ms": time_ms(lambda: DK.frame_dft_mags_plain(x, hop, offset, n_frames), 3),
         "library_ms": time_ms(lambda: frame_span_stft(x, hop, offset, n_frames, hann), 3),
         "nbytes": x.numel() * 4 + n_fr * 257 * 4,
-        "ops": n_fr * (512 + 512 * 257 * 2 * 2),
+        "ops": n_fr * (512 + rfft_ops(512) + 257 * 4),
     }
     bms, by = bound(out["nbytes"], out["ops"])
+    direct_ms = n_fr * (512 + 512 * 257 * 2 * 2) / F32_OPS_PER_S * 1e3
     print(f"  frame_dft_mags {label} {list(got.shape)}: relative error {rel:.3g}, {out['ms']:.4f} ms "
           f"(plain {out['plain_ms']:.4f}, torch.stft {out['library_ms']:.4f}, bound {bms:.4f} by "
-          f"{by})", flush=True)
+          f"{by}; the direct DFT's own operations at the f32 peak {direct_ms:.4f})", flush=True)
+    return out
+
+
+def hold_ct_frames(frames, label: str) -> dict:
+    """`ct_frames_mags` on `frames [N, 8192]` against its plain version
+    (1e-5 of each frame's max), with times, `torch.fft.rfft` as the library
+    call and the bytes and operations of this shape."""
+    from bliss_tpu_torch.ops import dft_kernels as DK
+
+    got = DK.ct_frames_mags(frames)
+    want = DK.ct_frames_mags_plain(frames)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel = (err.amax(0) / want.amax(0).clamp(min=1e-30)).max().item()
+    if not torch.isfinite(got).all() or rel > 1e-5:
+        fail(f"ct_frames_mags {label} vs plain: {rel:.3g} of each frame's max (limit 1e-5)")
+    n_fr, w = frames.shape
+    hann = torch.hann_window(w, periodic=True, device=frames.device)
+    out = {
+        "err": err.max().item(), "rel": rel,
+        "ms": time_ms(lambda: DK.ct_frames_mags(frames), 5),
+        "plain_ms": time_ms(lambda: DK.ct_frames_mags_plain(frames), 3),
+        "library_ms": time_ms(lambda: torch.fft.rfft(frames * hann).abs(), 3),
+        "nbytes": n_fr * w * 4 + n_fr * (w // 2 + 1) * 4,
+        "ops": n_fr * (w + rfft_ops(w) + (w // 2 + 1) * 4),
+    }
+    bms, by = bound(out["nbytes"], out["ops"])
+    print(f"  ct_frames {label} {list(frames.shape)}: relative error {rel:.3g} of the frame max, "
+          f"{out['ms']:.4f} ms (plain {out['plain_ms']:.4f}, torch.fft.rfft {out['library_ms']:.4f}, "
+          f"bound {bms:.4f} by {by})", flush=True)
     return out
 
 
@@ -620,7 +711,11 @@ def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int,
     from bliss_tpu_torch.models.analyzer import analyze_batch, analyze_samples
     from bliss_tpu_torch.ops import _build
     from bliss_tpu_torch.ops import dft_kernels as DK
-    from bliss_tpu_torch.ops.windows import n_frames_strided
+    from bliss_tpu_torch.ops.windows import (
+        frame_signal_reflect,
+        n_frames_stft,
+        n_frames_strided,
+    )
     from bliss_tpu_torch.routes import Routes
 
     b = x.shape[0]
@@ -628,6 +723,11 @@ def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int,
     nh = int(n_frames_strided(tpad, 512, 256))
     hold_frame_dft(x, 128, 384, nf, "8 x 5-min hop 128")
     hold_frame_dft(x, 256, 256, nh, "8 x 5-min hop 256")
+    # the chroma_stft="framed" route's frames, as ops.spectral.stft makes them
+    nfc = int(n_frames_stft(tpad, 2205))
+    frames = frame_signal_reflect(x, lengths, 8192, 2205, nfc).reshape(b * nfc, 8192)
+    hold_ct_frames(frames, "8 x 5-min, framed route")
+    del frames
 
     # timbral_flat: [B, F, 5], held like timbral_fft (relative 1e-5, below
     # +-1 on ties, the log2 sum through the geometric mean it gives; the
@@ -654,8 +754,11 @@ def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int,
         time_ms(lambda: DK.timbral_flat(x, nf), 10),
         time_ms(lambda: DK.timbral_flat_plain(x, nf), 2),
         x.numel() * 4 + b * nf * 5 * 4,
-        b * nf * (512 + 512 * 256 * 2 * 2 + 256 * 4 + 256 * 8), None,
+        b * nf * timbral_frame_ops(), None,
     )
+    direct_ms = b * nf * (512 + 512 * 256 * 2 * 2 + 256 * 4 + 256 * 8) / F32_OPS_PER_S * 1e3
+    print(f"  timbral_flat: the direct DFT's own operations at the f32 peak {direct_ms:.4f} ms "
+          f"(the bound above counts an FFT a frame, as timbral_fft's)", flush=True)
     # the frame-level flatness ingredient of the two timbral kernels
     fft_rows = DK.timbral_fft(x, nf)
     both = torch.isfinite(got[..., 3]) & torch.isfinite(fft_rows[..., 3])
@@ -721,11 +824,16 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
 
     from bliss_tpu_torch.io.batch import analyze_paths_batched
     from bliss_tpu_torch.io.fallback import FallbackDecoder
+    from bliss_tpu_torch.models import chroma as CH
     from bliss_tpu_torch.models.analyzer import analyze_batch, analyze_samples, bucket_length
     from bliss_tpu_torch.ops import _build
     from bliss_tpu_torch.ops import dft_kernels as DK
+    from bliss_tpu_torch.ops import reductions as RD
+    from bliss_tpu_torch.ops import tuning_kernels as TK
+    from bliss_tpu_torch.ops.windows import n_frames_stft, n_frames_strided
     from bliss_tpu_torch.parallel import longsong as LS
     from bliss_tpu_torch.song import Song
+    from bliss_tpu_torch.tables import default_tables
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -735,40 +843,54 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     print(f"long song: {minutes:g} min = {n} samples (bucket {tpad}), {shards} shards, data in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # ---- the two kernels at this song's shapes ----------------------------
+    # ---- the sharded path's kernels at this song's shapes ------------------
+    tab = default_tables().on(dev)
     ext, shard_len = LS._extended_shards(song, n, tpad, shards, dev)
-    fps_max, hps = shard_len // LS.HOP + 2, shard_len // LS.B_HOP
+    fps_max, hps, fps_t = shard_len // LS.HOP + 2, shard_len // LS.B_HOP, shard_len // LS.T_HOP
+    base = LS._shard_base(shards, shard_len, dev)
     f_lo = (torch.arange(shards, device=dev) * shard_len + LS.HOP - 1) // LS.HOP
-    frames = LS._chroma_local_frames(
-        ext, LS._shard_base(shards, shard_len, dev), f_lo, fps_max, n
-    ).reshape(shards * fps_max, LS.WINDOW)
-    got = DK.ct_frames_mags(frames)
-    want = DK.ct_frames_mags_plain(frames)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    rel = (err.amax(0) / want.amax(0).clamp(min=1e-30)).max().item()
-    if not torch.isfinite(got).all() or rel > 1e-5:
-        fail(f"ct_frames_mags vs plain: {rel:.3g} of each frame's max (limit 1e-5)")
-    hann = torch.hann_window(LS.WINDOW, periodic=True, device=dev)
-    n_fr = frames.shape[0]
+    # one launch a shard: the first shard (reflection around sample 0), the
+    # last (reflection around the song's end), and one inside
+    for i in (0, shards // 2, shards - 1):
+        frames = LS._chroma_local_frames(ext[i], base[i], f_lo[i], fps_max, n)
+        held = hold_ct_frames(frames, f"shard {i} of {shards}")
+        del frames
     record(
         "ct_frames", "bliss_tpu_torch/csrc/ct_stft.cu", "bliss_tpu/ops/pallas_dft.py:862",
-        err.max().item(),
-        time_ms(lambda: DK.ct_frames_mags(frames), 5),
-        time_ms(lambda: DK.ct_frames_mags_plain(frames), 3),
-        n_fr * LS.WINDOW * 4 + n_fr * 4097 * 4,
-        n_fr * (LS.WINDOW + rfft_ops(LS.WINDOW) + 4097 * 4),
-        time_ms(lambda: torch.fft.rfft(frames * hann).abs(), 3),
+        held["err"], held["ms"], held["plain_ms"], held["nbytes"], held["ops"], held["library_ms"],
     )
-    print(f"  ct_frames {list(frames.shape)}: relative error {rel:.3g} of the frame max", flush=True)
-    del frames, got, want, err
-    torch.cuda.empty_cache()
     held = hold_frame_dft(ext, LS.B_HOP, 2048 - LS.HALO, hps + 7, f"{shards} shards hop 256")
     record(
         "frame_dft_mags", "bliss_tpu_torch/csrc/frame_dft.cu", "bliss_tpu/ops/pallas_dft.py:53",
         held["err"], held["ms"], held["plain_ms"], held["nbytes"], held["ops"], held["library_ms"],
     )
-    del ext
+    # timbral_fft over the halo-extended shards: the first frame of a shard
+    # starts HALO - 384 samples into it
+    hold_timbral_fft(ext, fps_t, (LS.T_WIN - LS.T_HOP) - LS.HALO, f"{shards} shards")
+    t_ms = time_ms(lambda: DK.timbral_fft(ext, fps_t, offset=(LS.T_WIN - LS.T_HOP) - LS.HALO), 10)
+    t_bound = bound(ext.numel() * 4 + shards * fps_t * 5 * 4, shards * fps_t * timbral_frame_ops())
+    print(f"  timbral_fft {shards} shards: {t_ms:.4f} ms (bound {t_bound[0]:.4f} by {t_bound[1]})",
+          flush=True)
+    # the tuning planes of the sharded chroma stage: the global median by
+    # counting rounds against a sort of all shards' peaks, and the histogram
+    spectrum, valid = LS._chroma_spectrum(ext, shard_len, fps_max, n, torch.float32, tab)
+    pitches, pmags, peak = CH.pip_track(spectrum, valid, LS.WINDOW)
+    pos = peak & (pitches > 0.0)
+    med = LS._global_median_midpoint(pmags, pos)
+    med_sort = RD.masked_quantile_midpoint(pmags.reshape(1, -1), pos.reshape(1, -1))[0]
+    if not torch.equal(med, med_sort):
+        fail(f"long song: global median {med.item()!r} != sort median {med_sort.item()!r}")
+    del pitches, pmags, peak, pos
+    bin_plane, _ = LS._tuning_planes(spectrum, valid)
+    hist, histp = TK.histogram_int_plane(bin_plane, 100), TK.histogram_int_plane_plain(bin_plane, 100)
+    if not torch.equal(hist, histp):
+        fail("long song: histogram_int_plane != plain on the sharded tuning plane")
+    h_ms = time_ms(lambda: TK.histogram_int_plane(bin_plane, 100), 10)
+    h_bound = bound(bin_plane.numel() * 4 + shards * 400, bin_plane.numel())
+    print(f"  sharded tuning plane {list(bin_plane.shape)}: global median == sort median "
+          f"({med.item():.6g}), histogram_int_plane exact ({int(hist.sum())} peaks), {h_ms:.4f} ms "
+          f"(bound {h_bound[0]:.4f} by {h_bound[1]})", flush=True)
+    del ext, spectrum, valid, bin_plane, hist, histp
     torch.cuda.empty_cache()
 
     # ---- the sharded analyzer through its entry point ----------------------
@@ -804,18 +926,13 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     )
     print(f"  bucketed (B = 1): first {b_first:.3f} s, warm {b_warm:.3f} s, peak {b_peak:.2f} GB; "
           f"launches {b_launches} [{card}]", flush=True)
-    from bliss_tpu_torch.models import tempo as TP
-    from bliss_tpu_torch.tables import default_tables
-
     x1 = torch.as_tensor(buf, device=dev)
     lens1 = torch.as_tensor([n], device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    TP.tempo_feature(x1, lens1, default_tables().on(dev))
-    torch.cuda.synchronize()
-    print(f"  tempo stage alone on the bucketed buffer (warm): {time.perf_counter() - t0:.3f} s of "
-          f"the bucketed route's {b_warm:.3f} s", flush=True)
-    del x1, lens1
+    nfc = int(n_frames_stft(tpad, LS.HOP))
+    mask1 = torch.arange(nfc, device=dev) < n_frames_stft(lens1, LS.HOP).unsqueeze(-1)
+    print(f"  the bucketed route's {b_warm:.3f} s by stage:", flush=True)
+    stage_breakdown(x1, lens1, mask1, int(n_frames_strided(tpad, 512, 256)), warm_up=False)
+    del x1, lens1, mask1
     gap = np.abs(sharded - bucketed)
     print(f"  sharded vs bucketed: max {gap.max():.3g} (feature {int(gap.argmax())}), tempo "
           f"{sharded[0]:.7f} vs {bucketed[0]:.7f}; per feature {[float(f'{g:.2g}') for g in gap]}",
@@ -947,44 +1064,15 @@ def main() -> None:
 
     # timbral: [B, F, 5]
     nf = int(n_frames_strided(tpad, 512, 128))
-    got = DK.timbral_fft(x, nf)
-    want = DK.timbral_fft_plain(x, nf)
-    torch.cuda.synchronize()
-    fin = torch.isfinite(want)
-    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[~fin], want[~fin]):
-        fail("timbral_fft: non-finite entries differ from the plain version")
-    diff = torch.where(fin, (got - want).abs(), 0.0)
-    scale = torch.clamp(torch.where(fin, want.abs(), 0.0), min=1e-30)
-    # total, weighted, energy: relative 1e-5; below within +-1 (ties on the
-    # 95% energy line). The log2 sum can sit near 0, so it is held through
-    # the geometric mean exp2(sum / 256) it gives, |d sum| * ln 2 / 256:
-    # that sum weighs every near-silent bin, whose magnitude two different
-    # f32 FFTs round differently (both sit ~3e-6 from f64 on typical
-    # frames, more on the rare frame with a bin near zero), so its limit is
-    # the 1e-4 feature contract; its max and mean are printed.
-    geo = diff[..., 3] * math.log(2.0) / 256
-    rels = {
-        "total": (diff[..., 0] / scale[..., 0]).max().item(),
-        "weighted": (diff[..., 1] / scale[..., 1]).max().item(),
-        "energy": (diff[..., 4] / scale[..., 4]).max().item(),
-    }
-    rel = max(rels.values())
-    below = diff[..., 2].max().item()
-    geo_max = geo.max().item()
-    print(f"  timbral relative errors {rels}, geo_mean max {geo_max:.3g} mean "
-          f"{geo.mean().item():.3g}, below max diff {below}", flush=True)
-    if rel > 1e-5 or below > 1 or geo_max > 1e-4:
-        fail(f"timbral_fft vs plain: relative {rel:.3g} (limit 1e-5), geo_mean "
-             f"{geo_max:.3g} (limit 1e-4), below {below} (limit 1)")
+    timbral_err = hold_timbral_fft(x, nf, DK.TIMBRAL_OFFSET, f"{b} x {args.seconds / 60:g}-min")
     record(
         "timbral_fft", "bliss_tpu_torch/csrc/timbral_fft.cu",
-        "bliss_tpu/ops/pallas_dft.py:195", diff[..., [0, 1, 4]].max().item(),
+        "bliss_tpu/ops/pallas_dft.py:195", timbral_err,
         time_ms(lambda: DK.timbral_fft(x, nf), 20),
         time_ms(lambda: DK.timbral_fft_plain(x, nf), 3),
         b * tpad * 4 + b * nf * 5 * 4,
-        b * nf * (512 + rfft_ops(512) + 256 * 4 + 256 * 8), None,
+        b * nf * timbral_frame_ops(), None,
     )
-    del got, want, diff, scale, fin
 
     # SpecFlux: [B, H]
     nh = int(n_frames_strided(tpad, 512, 256))

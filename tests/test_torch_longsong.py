@@ -273,3 +273,32 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
         getattr(TL, entry)(x, x.shape[0])
     with pytest.raises(ValueError, match="shards"):
         getattr(TL, entry)(x, x.shape[0], shards=0, device="cpu")
+
+
+@pytest.mark.parametrize("shards,length", [(1, 40000), (3, 61000), (8, 99000)])
+def test_shard_local_chroma_frames_are_the_reflect_padded_frames(shards, length):
+    """Each shard's gathered chroma frames (one shard at a time, int32
+    positions, reflection taken on global positions) are the frames of the
+    whole reflect-padded song, for every frame the shard owns."""
+    from bliss_tpu_torch.ops.windows import frame_signal_reflect, n_frames_stft
+
+    rng = np.random.default_rng(shards)
+    sig = rng.normal(size=length + 500).astype(np.float32)  # 500 samples past the song
+    ext, shard_len = TL._extended_shards(sig, length, sig.shape[0], shards, torch.device("cpu"))
+    n_frames = int(n_frames_stft(length, TL.HOP))
+    whole = frame_signal_reflect(
+        torch.as_tensor(sig[:length])[None], [length], TL.WINDOW, TL.HOP, n_frames
+    )[0]
+    base = TL._shard_base(shards, shard_len, "cpu")
+    fps_max = shard_len // TL.HOP + 2
+    seen = 0
+    for d in range(shards):
+        f_lo = (d * shard_len + TL.HOP - 1) // TL.HOP
+        f_hi = min(((d + 1) * shard_len + TL.HOP - 1) // TL.HOP, n_frames)
+        got = TL._chroma_local_frames(ext[d], base[d], torch.as_tensor(f_lo), fps_max, length)
+        assert got.shape == (fps_max, TL.WINDOW) and got.dtype == torch.float32
+        assert f_hi - f_lo <= fps_max
+        if f_hi > f_lo:
+            assert torch.equal(got[: f_hi - f_lo], whole[f_lo:f_hi])
+            seen += f_hi - f_lo
+    assert seen == n_frames
