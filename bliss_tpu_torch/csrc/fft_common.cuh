@@ -1,4 +1,6 @@
-// Shared-memory radix-2 FFT used by the DFT kernels of this directory.
+// The two FFT bodies of the DFT kernels of this directory: a block-wide
+// shared-memory radix-2 FFT of any power-of-two length (fft_radix2_dit), and
+// a 512-point real FFT carried by one warp in registers (warp_rfft512_mags).
 //
 // Twiddle tables are built on the host in f64 from the INTEGER phase k
 // (tw_re[k] = cos(2*pi*k/N), tw_im[k] = -sin(2*pi*k/N), k in [0, N/2]) and
@@ -49,6 +51,191 @@ __device__ __forceinline__ void fft_radix2_dit(float* re, float* im, int log2n,
     }
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// One warp, one 512-point real FFT, magnitudes of bins 0..256.
+//
+// The 512 windowed samples are read as 256 complex points z[m] = xw[2m] +
+// i*xw[2m+1] (half the arithmetic of a complex transform of real input); the
+// 256-point complex FFT is 8 x 8 x 4 over the index split n = 32*n1 + 4*n2 +
+// n3, k = k1 + 8*k2 + 64*k3: each lane holds 8 points and does a radix-8
+// butterfly in registers, twice, then two radix-4 butterflies. Between the
+// stages the warp transposes through 288 complex slots of shared memory in
+// padded layouts (row strides 36 and 68) in which every 8-byte store and
+// load of a half-warp hits 16 different bank pairs; __syncwarp() orders
+// them, no block-wide barrier is taken. The last stage leaves lane q with Z[q + 32*r]
+// in register r, so the mirror bin Z[256 - k] that the real-input untangling
+// X[k] = E[k] + W_512^k * O[k] needs is register 7 - r of lane 32 - q: two
+// shuffles a bin, no third transpose. All twiddles sit in registers, looked up
+// once per warp by INTEGER phase in the host's f64-rounded table.
+// ---------------------------------------------------------------------------
+
+// floats of shared memory per warp, 8-byte aligned
+constexpr int kWarpFftScratch = 2 * 288;
+
+// Forward 4-point DFT in place, natural order in and out.
+__device__ __forceinline__ void dft4(float& r0, float& i0, float& r1, float& i1,
+                                     float& r2, float& i2, float& r3,
+                                     float& i3) {
+  const float s0r = r0 + r2, s0i = i0 + i2;
+  const float s1r = r0 - r2, s1i = i0 - i2;
+  const float s2r = r1 + r3, s2i = i1 + i3;
+  const float s3r = i1 - i3, s3i = r3 - r1;  // -i * (x1 - x3)
+  r0 = s0r + s2r; i0 = s0i + s2i;
+  r1 = s1r + s3r; i1 = s1i + s3i;
+  r2 = s0r - s2r; i2 = s0i - s2i;
+  r3 = s1r - s3r; i3 = s1i - s3i;
+}
+
+// Forward 8-point DFT in place, natural order in and out: one radix-2
+// decimation-in-frequency step, then a 4-point DFT of each half.
+__device__ __forceinline__ void dft8(float (&re)[8], float (&im)[8]) {
+  constexpr float c = 0.70710678118654752440f;
+  float ar[4], ai[4], br[4], bi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ar[j] = re[j] + re[j + 4];
+    ai[j] = im[j] + im[j + 4];
+    br[j] = re[j] - re[j + 4];
+    bi[j] = im[j] - im[j + 4];
+  }
+  // b[j] *= W_8^j
+  const float b1r = c * (br[1] + bi[1]), b1i = c * (bi[1] - br[1]);
+  const float b2r = bi[2], b2i = -br[2];
+  const float b3r = c * (bi[3] - br[3]), b3i = -c * (br[3] + bi[3]);
+  br[1] = b1r; bi[1] = b1i;
+  br[2] = b2r; bi[2] = b2i;
+  br[3] = b3r; bi[3] = b3i;
+  dft4(ar[0], ai[0], ar[1], ai[1], ar[2], ai[2], ar[3], ai[3]);
+  dft4(br[0], bi[0], br[1], bi[1], br[2], bi[2], br[3], bi[3]);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    re[2 * m] = ar[m];
+    im[2 * m] = ai[m];
+    re[2 * m + 1] = br[m];
+    im[2 * m + 1] = bi[m];
+  }
+}
+
+// W_512^p for any integer p, from the table of phases [0, 256]
+// (tw_re[k] = cos(2*pi*k/512), tw_im[k] = -sin(2*pi*k/512)): cos is even and
+// sin odd about phase 256.
+__device__ __forceinline__ void twiddle512(const float* __restrict__ tw_re,
+                                           const float* __restrict__ tw_im,
+                                           int p, float& re, float& im) {
+  p &= 511;
+  const int q = p <= 256 ? p : 512 - p;
+  re = __ldg(tw_re + q);
+  const float s = __ldg(tw_im + q);
+  im = p <= 256 ? s : -s;
+}
+
+// The twiddles one lane needs, held in registers for every frame it takes.
+struct WarpFftTwiddles {
+  float a_re[8], a_im[8];  // after stage 1: W_512^(8*n2*k1), lane = 4*n2 + n3
+  float b_re[8], b_im[8];  // after stage 2: W_512^(2*n3*(k1 + 8*k2)), lane = 4*k1 + n3
+  float c_re[8], c_im[8];  // untangling: W_512^(lane + 32*r)
+
+  __device__ __forceinline__ void load(const float* __restrict__ tw_re,
+                                       const float* __restrict__ tw_im,
+                                       int lane) {
+    const int hi = lane >> 2, lo = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      twiddle512(tw_re, tw_im, 8 * hi * j, a_re[j], a_im[j]);
+      twiddle512(tw_re, tw_im, 2 * lo * (hi + 8 * j), b_re[j], b_im[j]);
+      twiddle512(tw_re, tw_im, lane + 32 * j, c_re[j], c_im[j]);
+    }
+  }
+};
+
+// |X[k]| of the 512-point DFT of sig[n] * win[n] (both in shared memory, 8-byte
+// aligned), by the 32 lanes of one warp. On return lane q holds |X[q + 32*r]|
+// in mag[r] and every lane holds |X[256]| of its own view in nyq (lane 0's is
+// the bin). `scratch` is kWarpFftScratch floats of shared memory owned by this
+// warp, 8-byte aligned. Every lane of the warp must call this.
+__device__ __forceinline__ void warp_rfft512_mags(
+    const float* sig, const float* win, float* scratch,
+    const WarpFftTwiddles& tw, int lane, float (&mag)[8], float& nyq) {
+  constexpr unsigned kFull = 0xffffffffu;
+  float re[8], im[8];
+  const float2* s2 = reinterpret_cast<const float2*>(sig) + lane;
+  const float2* w2 = reinterpret_cast<const float2*>(win) + lane;
+#pragma unroll
+  for (int n1 = 0; n1 < 8; ++n1) {
+    const float2 v = s2[32 * n1];
+    const float2 w = w2[32 * n1];
+    re[n1] = v.x * w.x;
+    im[n1] = v.y * w.y;
+  }
+  // stage 1: lane (n2, n3) transforms over n1, then turns by W_64^(n2*k1)
+  dft8(re, im);
+#pragma unroll
+  for (int k1 = 1; k1 < 8; ++k1) {
+    const float r = re[k1] * tw.a_re[k1] - im[k1] * tw.a_im[k1];
+    im[k1] = re[k1] * tw.a_im[k1] + im[k1] * tw.a_re[k1];
+    re[k1] = r;
+  }
+  float2* xs = reinterpret_cast<float2*>(scratch);
+  __syncwarp();  // the previous frame's last loads are done
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) {
+    xs[k1 * 36 + lane] = make_float2(re[k1], im[k1]);
+  }
+  __syncwarp();
+  // stage 2: lane (k1, n3) transforms over n2, then turns by W_256^(n3*(k1+8*k2))
+  const int g = (lane >> 2) * 36 + (lane & 3);
+#pragma unroll
+  for (int n2 = 0; n2 < 8; ++n2) {
+    const float2 v = xs[g + 4 * n2];
+    re[n2] = v.x;
+    im[n2] = v.y;
+  }
+  dft8(re, im);
+#pragma unroll
+  for (int k2 = 0; k2 < 8; ++k2) {
+    const float r = re[k2] * tw.b_re[k2] - im[k2] * tw.b_im[k2];
+    im[k2] = re[k2] * tw.b_im[k2] + im[k2] * tw.b_re[k2];
+    re[k2] = r;
+  }
+  __syncwarp();  // every lane has read stage 1's layout
+  const int t = (lane & 3) * 68 + (lane >> 2);
+#pragma unroll
+  for (int k2 = 0; k2 < 8; ++k2) {
+    xs[t + 8 * k2] = make_float2(re[k2], im[k2]);
+  }
+  __syncwarp();
+  // stage 3: lane q transforms over n3 for k1 + 8*k2 = q and q + 32, which
+  // leaves Z[q + 32*r] in register r = h + 2*k3
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int at = lane + 32 * h;
+    const float2 v0 = xs[at], v1 = xs[68 + at], v2 = xs[136 + at], v3 = xs[204 + at];
+    float r0 = v0.x, r1 = v1.x, r2 = v2.x, r3 = v3.x;
+    float i0 = v0.y, i1 = v1.y, i2 = v2.y, i3 = v3.y;
+    dft4(r0, i0, r1, i1, r2, i2, r3, i3);
+    re[h] = r0; re[h + 2] = r1; re[h + 4] = r2; re[h + 6] = r3;
+    im[h] = i0; im[h + 2] = i1; im[h + 4] = i2; im[h + 6] = i3;
+  }
+  // real-input untangling with the mirror bin Z[256 - k] = c + i*d
+  const int partner = (32 - lane) & 31;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float c = __shfl_sync(kFull, re[7 - r], partner);
+    float d = __shfl_sync(kFull, im[7 - r], partner);
+    if (lane == 0) {  // 256 - 32*r lies in lane 0 itself (Z[256] is Z[0])
+      c = re[(8 - r) & 7];
+      d = im[(8 - r) & 7];
+    }
+    const float a = re[r], b = im[r];
+    const float er = 0.5f * (a + c), ei = 0.5f * (b - d);
+    const float pr = 0.5f * (b + d), pi = 0.5f * (c - a);
+    const float yr = er + (tw.c_re[r] * pr - tw.c_im[r] * pi);
+    const float yi = ei + (tw.c_re[r] * pi + tw.c_im[r] * pr);
+    mag[r] = sqrtf(yr * yr + yi * yi);
+  }
+  nyq = fabsf(re[0] - im[0]);
 }
 
 }  // namespace bliss

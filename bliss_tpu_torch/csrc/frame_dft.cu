@@ -1,14 +1,31 @@
-// Direct (matrix-product) DFT of the Hann-windowed 512-sample strided frames
-// of a signal: the magnitudes, or the timbral rows of the magnitudes.
+// The Hann-windowed 512-sample strided frames of a signal: their DFT
+// magnitudes by a warp-level FFT, and the timbral rows of a direct
+// (matrix-product) DFT.
 //
 // frame_dft_mags_launch replaces the TPU kernel
 // bliss_tpu/ops/pallas_dft.py:53 _make_kernel (via pallas_frame_dft_mags):
 // out[b, f, k] = |sum_n x[b, f*hop - offset + n] * win[n] * W_512^(n*k)|,
-// k in [0, 256], zeros outside [0, T).
+// k in [0, 256], zeros outside [0, T). The TPU kernel forms that sum as a
+// matrix product with a [512, 257] twiddle matrix, the shape its matrix unit
+// wants; here the same magnitudes come from an FFT, bliss::warp_rfft512_mags
+// (fft_common.cuh), in f32 at full precision with integer-exact twiddle phases.
+//
+// Bound on the card, frame_dft_mags: bytes. Per frame 1,028 bytes of
+// magnitudes go out and 0.5-1 KB of signal comes in, against ~14k f32
+// operations of an FFT. Design: a frame per warp, never a block-wide barrier
+// inside a transform. A 256-thread block walks a run of 32-frame tiles of one
+// song; a tile's contiguous sample span (frames overlap 2-4x) is staged once
+// into shared memory by cp.async, double buffered, so the next tile loads
+// while the 8 warps transform this one (4 frames each). Zeros outside [0, T)
+// and a negative offset are handled while staging, at the span's edges only.
+// Each warp stores a frame's 257 magnitudes as 8 runs of 32 consecutive
+// floats with streaming stores: the output is written once and never read
+// back here. The twiddles (24 complex values a lane) are loaded into
+// registers once per block run.
 //
 // timbral_flat_launch replaces the TPU kernel
 // bliss_tpu/ops/pallas_dft.py:80 _make_timbral_kernel (via
-// pallas_frame_dft_timbral with the flat kernel selected): the same transform
+// pallas_frame_dft_timbral with the flat kernel selected): the direct DFT
 // over aubio's buggy 256-slot layout (slot 255 carries the Nyquist bin,
 // src/aubio.rs:237-261), the partial sums of the four 128-sample chunks of a
 // frame combined with the reference's Neumaier step,
@@ -16,22 +33,18 @@
 // magnitudes never reach device memory. A near-exact DFT sits farther from
 // the reference's f32 FFT than another f32 FFT does on quiet frames; the
 // default timbral route is timbral_fft.cu, this one exists to be measured.
-//
-// Both are the product the TPU kernel forms in its own body, in f32 FMAs at
+// It is the product the TPU kernel forms in its own body, in f32 FMAs at
 // full precision (never TF32), with an integer-exact phase: the twiddle of
 // (n, k) is entry (n*k) & 511 of a 512-entry cos/-sin table in shared memory,
 // unfolded from the host's f64-rounded [2, 257] table. No [512, 257] twiddle
 // matrix exists in device memory.
 //
-// Bound on the card: operations. Per frame 512 window products and
-// 512 x 257 x 2 FMAs (~0.53 MFLOP) against 0.5-1 KB of signal in and 1 KB
-// (magnitudes) or 20 bytes (rows) out. Design: one 256-thread block per tile
-// of frames; the tile's sample span is staged in shared memory once (frames
-// overlap 2-4x); thread k owns bin k of every frame of the tile, so one
-// twiddle lookup feeds 16 (magnitudes) or 8 (rows) frames' FMAs, and the
-// samples are read as broadcast float4. Bins 0 and 256 have no imaginary
-// part, so thread 0 carries the Nyquist bin in its imaginary accumulator and
-// 256 threads cover 257 bins.
+// Bound on the card, timbral_flat: operations. Per frame 512 window products
+// and 512 x 256 x 2 FMAs (~0.52 MFLOP) against 0.5 KB of signal in and 20
+// bytes out. Design: one 256-thread block per tile of 8 frames; the tile's
+// sample span is staged in shared memory once; thread k owns slot k of every
+// frame of the tile, so one twiddle lookup feeds 8 frames' FMAs, and the
+// samples are read as broadcast float4.
 #include "timbral_rows.cuh"
 
 namespace {
@@ -40,8 +53,13 @@ constexpr int kWin = 512;
 constexpr int kThreads = bliss::kRowThreads;
 constexpr int kMaxHop = 256;
 constexpr int kChunk = 128;      // the reference's partial-sum width
-constexpr int kMagFrames = 16;   // frames per block, magnitudes
 constexpr int kRowFrames = 8;    // frames per block, timbral rows
+constexpr int kFftTile = 32;     // frames per staged tile, magnitudes
+constexpr int kFftWarps = kThreads / 32;
+constexpr int kFftSpan = (kFftTile - 1) * kMaxHop + kWin;  // floats of a tile
+constexpr int kFftSmemFloats =
+    2 * kFftSpan + kWin + kFftWarps * bliss::kWarpFftScratch;
+constexpr int kBins = kWin / 2 + 1;
 
 template <int FT>
 struct Tile {
@@ -104,38 +122,89 @@ __device__ __forceinline__ void accumulate(const Tile<FT>& t, int hop, int k_re,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `kPending` of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Start the copy of the samples of tile `tile` of one song into `dst`; zeros
+// where the span leaves [0, t_len). One commit group per call and thread.
+__device__ __forceinline__ void stage_tile_async(float* dst,
+                                                 const float* __restrict__ xs,
+                                                 long long t_len, int tile,
+                                                 int hop, int offset) {
+  const int span = (kFftTile - 1) * hop + kWin;
+  const long long start = static_cast<long long>(tile) * kFftTile * hop - offset;
+  for (int i = threadIdx.x; i < span; i += kThreads) {
+    const long long s = start + i;
+    if (s >= 0 && s < t_len) {
+      cp_async4(dst + i, xs + s);
+    } else {
+      dst[i] = 0.0f;
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 frame_dft_mags_kernel(const float* __restrict__ x, long long t_len,
-                      int n_frames, int hop, int offset,
+                      int n_frames, int hop, int offset, int tiles_per_block,
                       const float* __restrict__ win,
                       const float* __restrict__ tw_re,
                       const float* __restrict__ tw_im,
                       float* __restrict__ out) {
-  __shared__ __align__(16) Tile<kMagFrames> t;
+  extern __shared__ __align__(16) float smem[];
+  float* wins = smem + 2 * kFftSpan;
   const int tid = threadIdx.x;
-  const int f0 = blockIdx.x * kMagFrames;
-  stage(t, x + static_cast<long long>(blockIdx.y) * t_len, t_len,
-        static_cast<long long>(f0) * hop - offset, hop, win, tw_re, tw_im);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  float* scratch = wins + kWin + warp * bliss::kWarpFftScratch;
 
-  float re[kMagFrames], im[kMagFrames];
-#pragma unroll
-  for (int f = 0; f < kMagFrames; ++f) re[f] = im[f] = 0.0f;
-  // thread 0: bin 0 in `re`, the Nyquist bin (phase n*256, real) in `im`
-  const bool edge = tid == 0;
-  accumulate(t, hop, tid, edge ? kWin / 2 : tid, edge ? 0 : kWin, 0, kWin, re,
-             im);
+  const int n_tiles = (n_frames + kFftTile - 1) / kFftTile;
+  const int t_begin = blockIdx.x * tiles_per_block;
+  const int t_end = min(t_begin + tiles_per_block, n_tiles);
+  if (t_begin >= t_end) return;
+  const float* xs = x + static_cast<long long>(blockIdx.y) * t_len;
+  float* os = out + static_cast<long long>(blockIdx.y) * n_frames * kBins;
 
-  constexpr int kBins = kWin / 2 + 1;
-  float* o = out + (static_cast<long long>(blockIdx.y) * n_frames + f0) * kBins;
-#pragma unroll
-  for (int f = 0; f < kMagFrames; ++f) {
-    if (f0 + f >= n_frames) break;
-    if (edge) {
-      o[f * kBins] = fabsf(re[f]);
-      o[f * kBins + kWin / 2] = fabsf(im[f]);
+  stage_tile_async(smem, xs, t_len, t_begin, hop, offset);
+  for (int i = tid; i < kWin; i += kThreads) wins[i] = win[i];
+  bliss::WarpFftTwiddles tw;
+  tw.load(tw_re, tw_im, lane);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const float* cur = smem + ((t - t_begin) & 1) * kFftSpan;
+    if (t + 1 < t_end) {
+      // the other buffer was last read before the barrier that ended tile t - 1
+      stage_tile_async(smem + ((t + 1 - t_begin) & 1) * kFftSpan, xs, t_len,
+                       t + 1, hop, offset);
+      cp_async_wait<1>();
     } else {
-      o[f * kBins + tid] = sqrtf(re[f] * re[f] + im[f] * im[f]);
+      cp_async_wait<0>();
     }
+    __syncthreads();  // tile t (and the window) is visible to every warp
+    for (int j = warp; j < kFftTile; j += kFftWarps) {
+      const int f = t * kFftTile + j;
+      if (f >= n_frames) break;
+      float mag[8], nyq;
+      bliss::warp_rfft512_mags(cur + j * hop, wins, scratch, tw, lane, mag, nyq);
+      float* o = os + static_cast<long long>(f) * kBins;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) __stcs(o + lane + 32 * r, mag[r]);
+      if (lane == 0) __stcs(o + kWin / 2, nyq);
+    }
+    __syncthreads();  // every warp is done with tile t's buffer
   }
 }
 
@@ -199,9 +268,28 @@ extern "C" int frame_dft_mags_launch(const float* x, int batch, long long t_len,
                                      cudaStream_t stream) {
   if (n_frames <= 0 || batch <= 0) return 0;
   if (bad_hop(hop)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_frames + kMagFrames - 1) / kMagFrames, batch);
-  frame_dft_mags_kernel<<<grid, kThreads, 0, stream>>>(
-      x, t_len, n_frames, hop, offset, win, tw_re, tw_im, out);
+  constexpr int kSmemBytes = kFftSmemFloats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      frame_dft_mags_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a block walks a run of tiles, long enough to amortise its twiddle loads
+  // and to overlap staging with transforms, short enough for ~4 waves of the
+  // 2 blocks an SM holds
+  const int n_tiles = (n_frames + kFftTile - 1) / kFftTile;
+  const long long want_blocks = static_cast<long long>(sms) * 2 * 4;
+  const long long all_tiles = static_cast<long long>(n_tiles) * batch;
+  int tiles_per_block =
+      static_cast<int>((all_tiles + want_blocks - 1) / want_blocks);
+  if (tiles_per_block < 1) tiles_per_block = 1;
+  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, batch);
+  frame_dft_mags_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      x, t_len, n_frames, hop, offset, tiles_per_block, win, tw_re, tw_im, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,7 @@ The 8192/2205 STFT runs in one kernel launch for the whole batch
 the JAX package does (`chroma_features`): at f32 the fused estimator
 (`bisect16_pair` + `histogram_threshold_plane`) while its per-song plane
 fits the reference's budget, else the unfused one (the byte-radix median
-with `bisect8`, then `histogram_int_plane`); all four are the counting
+with `bisect8_keys`, then `histogram_int_plane`); all four are counting
 kernels of `ops/tuning_kernels.py`. At f64 (the CPU golden path) tuning
 takes the unfused route with the sort-based median of the reference.
 
@@ -188,11 +188,16 @@ def estimate_tuning(
 ):
     """Tuning offset `[B]` from a magnitude spectrogram `[B, bins, F]`
     (src/chroma.rs:361-391), the unfused route: the masked median of the
-    peak magnitudes (`bisect8` through the radix select on a CUDA f32
+    peak magnitudes (`bisect8_keys` through the radix select on a CUDA f32
     tensor, a sort otherwise), then the histogram of the peaks above it."""
     pitches, mags, peak_mask = pip_track(spectrum, frame_mask, n_fft)
     pos_mask = peak_mask & (pitches > 0.0)
-    threshold = masked_quantile_midpoint_all(mags, pos_mask, 0.5)
+    # a median over all elements takes them in any order: hand over the
+    # frame-major storage behind the `[B, rows, F]` views, which the select
+    # reads in place
+    threshold = masked_quantile_midpoint_all(
+        mags.transpose(1, 2), pos_mask.transpose(1, 2), 0.5
+    )
     sel = pos_mask & (mags >= threshold.view(-1, 1, 1))
     tuning = pitch_tuning(pitches, sel, resolution, bins_per_octave)
     return torch.where(peak_mask.flatten(1).any(1), tuning, 0.0)

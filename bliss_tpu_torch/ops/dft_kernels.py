@@ -10,11 +10,11 @@ Six kernels, each with its plain PyTorch version in this module:
   the reflect-padded signal, replacing `_make_ct_fused_kernel`;
 - `ct_frames_mags` (csrc/ct_stft.cu): the same transform over pre-framed
   `[N, W]` input, replacing `_make_ct_kernel`;
-- `frame_dft_mags` (csrc/frame_dft.cu): direct-DFT magnitudes of the
-  512-sample strided frames of a signal, replacing `_make_kernel`;
-- `timbral_flat` (csrc/frame_dft.cu): the timbral reductions of that
-  direct DFT with Neumaier-compensated chunk sums, replacing
-  `_make_timbral_kernel`.
+- `frame_dft_mags` (csrc/frame_dft.cu): DFT magnitudes of the 512-sample
+  strided frames of a signal by a warp-level FFT, replacing `_make_kernel`;
+- `timbral_flat` (csrc/frame_dft.cu): the timbral reductions of a direct
+  (matrix-product) DFT of the same frames with Neumaier-compensated chunk
+  sums, replacing `_make_timbral_kernel`.
 
 A wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
 tensor; there is no other switch. On CUDA it checks device, dtype, shape
@@ -292,7 +292,7 @@ def ct_frames_mags(
 
 
 # --------------------------------------------------------------------------
-# direct DFT of 512-sample strided frames: magnitudes, and the flat timbral rows
+# 512-sample strided frames: FFT magnitudes, and the direct-DFT flat timbral rows
 # --------------------------------------------------------------------------
 
 
@@ -323,7 +323,8 @@ def frame_dft_mags(
     frames of `signal [B, T]`; frame f covers `signal[f*hop - offset, f*hop
     - offset + 512)` with zeros before 0 and past `T`. `hop` is a multiple
     of 4 up to 256 (the analysis uses 128 and 256); `offset` may be
-    negative (a halo-extended shard)."""
+    negative (a halo-extended shard). On the card an f32 FFT, one frame a
+    warp (csrc/fft_common.cuh `warp_rfft512_mags`)."""
     if window_length != TEMPO_WINDOW:
         raise ValueError(f"window {window_length}: the kernel is written for 512")
     if hop <= 0 or hop > 256 or hop % 4:

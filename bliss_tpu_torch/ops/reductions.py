@@ -81,11 +81,12 @@ def masked_quantile_midpoint_all(
     """`masked_quantile_midpoint` over all elements after the batch axis:
     `[B, ...]` in, `[B]` out.
 
-    A CUDA f32 tensor goes through the byte-radix select and its `bisect8`
-    kernel at every size. The JAX package takes its XLA bisect above an
-    8 MiB int8 plane (bliss_tpu/ops/reductions.py:187-190), a bound set by
-    the TPU's VMEM, which has no counterpart on the card. Both routes
-    select exactly, so the result is the same."""
+    A CUDA f32 tensor goes through the byte-radix select and its
+    `bisect8_keys` kernel at every size, read in place (it must be
+    contiguous). The JAX package takes its XLA bisect above an 8 MiB int8
+    plane (bliss_tpu/ops/reductions.py:187-190), a bound set by the TPU's
+    VMEM, which has no counterpart on the card. Both routes select exactly,
+    so the result is the same."""
     b = values.shape[0]
     if values.device.type == "cuda" and values.dtype == torch.float32:
         from .tuning_kernels import masked_quantile_midpoint_radix

@@ -2,10 +2,12 @@
 bliss_tpu/ops/pallas_select.py and bliss_tpu/ops/pallas_hist.py).
 
 The fused route's `bisect16_pair` and `histogram_threshold_plane`, and the
-unfused route's `bisect8` (under `masked_quantile_midpoint_radix`) and
-`histogram_int_plane`. All four kernels live in csrc/tuning.cu and count
-exact integers. Each wrapper runs its kernel on CUDA tensors and its plain
-version (here, with `torch.bincount` and `torch.cumsum`) on CPU tensors.
+unfused route's byte-radix select (`masked_quantile_midpoint_radix`, four
+launches of `bisect8_keys`; `bisect8` is the same counting pass over a
+ready-made int8 plane) and `histogram_int_plane`. All kernels live in
+csrc/tuning.cu and count exact integers. Each wrapper runs its kernel on
+CUDA tensors and its plain version (here, with `torch.bincount` and
+`torch.cumsum`) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -235,24 +237,104 @@ def radix_plane(u: torch.Tensor, m: torch.Tensor, level: int, prefix: torch.Tens
     return torch.where(member, sb, 127).to(torch.int8).contiguous()
 
 
+def bisect8_keys_plain(
+    values: torch.Tensor, mask: torch.Tensor, level: int, state: torch.Tensor,
+    q: float = 0.5, median: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of `bisect8_keys`: per rank the int8 plane of this
+    level (`radix_plane` over `radix_keys`) through `bisect8_plain`."""
+    from .reductions import _u32_key_to_float
+
+    u, m, n, ranks = radix_keys(values, mask, q)
+    if level == 0:
+        state[:, 0:2] = 0
+        state[:, 2:4] = torch.stack(ranks, dim=1)
+    state[:, 4] = n
+    out = torch.stack(
+        [
+            bisect8_plain(radix_plane(u, m, level, state[:, s]), state[:, 2 + s])
+            for s in range(2)
+        ],
+        dim=1,
+    )
+    state[:, 0:2] = (state[:, 0:2] << 8) | out[:, :, 0]
+    state[:, 2:4] -= out[:, :, 1]
+    if level == 3 and median is not None:
+        lo, hi = (_u32_key_to_float(state[:, s], values.dtype) for s in range(2))
+        median.copy_(torch.where(n > 0, (lo + hi) * 0.5, float("inf")))
+    return out
+
+
+def bisect8_keys(
+    values: torch.Tensor, mask: torch.Tensor, level: int, state: torch.Tensor,
+    q: float = 0.5, median: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One level (0-3, from the top byte down) of the byte-radix select
+    over the u32 sort keys of `values [B, N]` f32 where `mask [B, N]` bool
+    holds, for the floor and the ceil rank of the midpoint quantile `q` in
+    one pass over the mask; no `[B, N]` plane is formed.
+
+    `state` is `[B, 5]` int64, advanced in place: per rank the key's higher
+    bytes found so far, per rank the rank that remains among the keys that
+    share them, and the valid count. Level 0 reads nothing of it: it counts
+    the valid elements and takes the ranks `floor / ceil((n - 1) * q)` from
+    that count. Returns `[B, 2, 2]` int32, per rank `[bucket, below]`: bit
+    for bit what `bisect8` returns for that rank's `radix_plane`, the 0xFF
+    rule included. After level 3 `state[:, :2]` holds the two keys, and
+    `median [B]` f32, when given, the midpoint of their floats (+inf for a
+    song without a valid element)."""
+    if not _build.on_cuda(values):
+        return bisect8_keys_plain(values, mask, level, state, q, median)
+    dev = values.device
+    b = values.shape[0]
+    _build.require("values", values, torch.float32, 2, dev)
+    _build.require("mask", mask, torch.bool, 2, dev)
+    _build.require("state", state, torch.int64, 2, dev)
+    if mask.shape != values.shape or state.shape != (b, 5) or not 0 <= level <= 3:
+        raise ValueError("bisect8_keys: mismatched shapes or level outside 0-3")
+    if median is not None:
+        _build.require("median", median, torch.float32, 1, dev)
+        if median.shape[0] != b:
+            raise ValueError(f"median: expected shape ({b},), got {tuple(median.shape)}")
+    # per rank 256 buckets, then the count of valid elements
+    hist = torch.zeros((b, 513), dtype=torch.int32, device=dev)
+    out = torch.empty((b, 2, 2), dtype=torch.int32, device=dev)
+    fn = _build.function(
+        "tuning", "bisect8_keys_launch",
+        [_P, _P, _I, _L, _I, ctypes.c_float, _P, _P, _P, _P, _P],
+    )
+    err = fn(
+        _build.ptr(values), _build.ptr(mask), b, values.shape[1], level, q,
+        _build.ptr(state), _build.ptr(hist), _build.ptr(out),
+        _build.ptr(median) if median is not None else None, _build.stream_ptr(dev),
+    )
+    _build.check("bisect8_keys", err)
+    _build.count_launch("bisect8_keys")
+    return out
+
+
 def masked_quantile_midpoint_radix(
     values: torch.Tensor, mask: torch.Tensor, q: float = 0.5
 ) -> torch.Tensor:
     """Midpoint-interpolated masked quantile of each song's f32 values
     `[B, ...]` -> `[B]` by a 4-level byte radix over the u32 sort keys
-    (bliss_tpu/ops/pallas_select.py:masked_quantile_midpoint_radix): per
-    level and rank, the plane of this level's key byte (`radix_plane`),
-    then `bisect8`; 8 launches per call. Exactly
-    `masked_quantile_midpoint_all`'s result; +inf for an all-False mask."""
-    from .reductions import _u32_key_to_float
-
-    u, m, n, rem = radix_keys(values, mask, q)
-    prefix = [torch.zeros(u.shape[0], dtype=torch.int64, device=u.device) for _ in range(2)]
+    (bliss_tpu/ops/pallas_select.py:masked_quantile_midpoint_radix): one
+    `bisect8_keys` per level, which counts both ranks in one pass over the
+    mask and carries prefixes and ranks in a `[B, 5]` device tensor; 4
+    launches per call and no host synchronisation. CUDA tensors are read in
+    place and must be contiguous. Exactly `masked_quantile_midpoint_all`'s
+    result; +inf for an all-False mask."""
+    if mask.shape != values.shape:
+        raise ValueError("masked_quantile_midpoint_radix: mask and values differ in shape")
+    dev = values.device
+    b = values.shape[0]
+    if _build.on_cuda(values):
+        # read in place: reshaping a non-contiguous tensor would copy the plane
+        _build.require("values", values, torch.float32, values.dim(), dev)
+        _build.require("mask", mask, torch.bool, mask.dim(), dev)
+    v, m = values.reshape(b, -1), mask.reshape(b, -1)
+    state = torch.zeros((b, 5), dtype=torch.int64, device=dev)
+    median = torch.empty(b, dtype=torch.float32, device=dev)
     for level in range(4):
-        outs = [bisect8(radix_plane(u, m, level, prefix[s]), rem[s]) for s in range(2)]
-        for s in range(2):
-            prefix[s] = (prefix[s] << 8) | outs[s][:, 0].to(torch.int64)
-            rem[s] = (rem[s] - outs[s][:, 1]).to(torch.int32).contiguous()
-    lo, hi = (_u32_key_to_float(p, values.dtype) for p in prefix)
-    mid = (lo + hi) * 0.5
-    return torch.where(n > 0, mid, float("inf"))
+        bisect8_keys(v, m, level, state, q, median)
+    return median

@@ -10,8 +10,9 @@ variable.
 - `timbral`: `"fft"` (default, `timbral_fft`: FFT-structured spectrum, the
   one that meets the flatness contract), `"flat"` (`timbral_flat`: the
   direct-DFT rows; mirrors `BLISS_TIMBRAL_FFT=0`), `"mags"`
-  (`frame_dft_mags` then the descriptors from the `[F, 256]` magnitudes;
-  mirrors `BLISS_TIMBRAL_FUSED=0`).
+  (`frame_dft_mags`, an FFT whose magnitudes reach device memory, then the
+  descriptors from the `[F, 256]` magnitudes; mirrors
+  `BLISS_TIMBRAL_FUSED=0`).
 - `tempo`: `"fused"` (default, `specflux`), `"mags"` (`frame_dft_mags`
   then `onset_function`; mirrors `BLISS_TEMPO_FUSED=0`).
 - `chroma_stft`: `"fused"` (default, `ct_stft_mags` frames the padded

@@ -13,19 +13,23 @@
    the shapes the analysis gives it, and times both;
 5. drives `analyze_batch` (V2, then V1) on the card with the launch
    counts reset just before, fails if any kernel did not run, and times
-   each descriptor stage alone (`--profile` adds a torch.profiler trace
-   of one batch: device busy share and the longest-running kernels);
+   each descriptor stage alone and both tuning routes on the batch's
+   spectra, equal bit for bit (`--profile` adds a torch.profiler trace of
+   one batch: device busy share and the longest-running kernels);
 6. holds the card's f32 vectors against the port's CPU f64 path: on
    tests/data/piano.wav (<= 1e-4 per feature, and against the pinned
    PIANO_V2) and on one synthetic song (<= 2e-2, same dominant chroma);
 7. long buckets, whose tuning takes the unfused route: on 8 synthetic
    7-minute songs (bucket 10,485,760) and 2 synthetic 21-minute songs
-   (bucket 29,360,128, B = 2) holds `bisect8` and `histogram_int_plane`
-   against their plain versions at full width and times them, drives
-   `analyze_batch` with the counts reset (the two must launch, the fused
-   route's two must not), holds the unfused tuning equal to the fused
-   route's on the same spectra, and one 7-minute song's vector against
-   the CPU f64 path (<= 2e-2, same dominant chroma);
+   (bucket 29,360,128, B = 2) holds `bisect8_keys` (every level, both
+   ranks, bit for bit), `bisect8` (the int8-plane entry of the same
+   counting pass) and `histogram_int_plane` against their plain versions at
+   full width and times them, the whole radix select (4 launches, counted)
+   beside `torch.nanquantile` and `torch.kthvalue`, drives `analyze_batch`
+   with the counts reset (`bisect8_keys` and `histogram_int_plane` must
+   launch, the fused route's two must not), holds the unfused tuning
+   equal to the fused route's on the same spectra, and one 7-minute song's
+   vector against the CPU f64 path (<= 2e-2, same dominant chroma);
 8. files: `io.batch.analyze_paths_batched` on the card over the drift
    fixtures (all but the 21-minute medley), piano.flac,
    s16_mono_22_5kHz.flac and testcue.cue (`--corpus full`: every fixture
@@ -42,18 +46,20 @@
    with `tempo="mags"`; `chroma_stft="framed"`) with the counts reset,
    checks each route's launches, prints each vector's distance to the
    default route's (tempo must be equal, chroma within 1e-5; the timbral
-   features of the direct-DFT routes are reported), and the flatness drift
-   of `"flat"` against `timbral_fft` and the CPU f64 path on piano.wav and
-   the batch;
+   features of the `"flat"` and `"mags"` routes are reported), and the
+   flatness drift of `"flat"` against `timbral_fft` and the CPU f64 path on
+   piano.wav and the batch;
 10. long song, full width: one synthetic 60-minute song (79,380,000
    samples, 8 shards of 10,485,760): holds every kernel of the sharded
    path at the shapes that path gives it: `ct_frames_mags` at one shard's
    `[4,757, 8192]` (first, middle and last shard), `frame_dft_mags` at
    `[8, 10,506,554]` and `timbral_fft` on the same halo-extended shards
    with its negative frame offset, each against its plain version (the
-   first two against library calls too), the global median's counting
-   rounds against a sort, and `histogram_int_plane` on the sharded tuning
-   plane; drives `parallel.longsong.sharded_analyze_samples` with the
+   first two against library calls too; the worst `timbral_fft` frame is
+   printed with its shard and RMS), the global median's counting rounds
+   against a sort and timed alone beside the sharded chroma stage and the
+   radix select on the same plane, and `histogram_int_plane` on the sharded
+   tuning plane; drives `parallel.longsong.sharded_analyze_samples` with the
    counts reset (the four must launch), holds the vector against the
    bucketed `analyze_batch` (B = 1) of the same song (<= 2e-5 per feature,
    tempo equal; up to the 1e-4 contract a gap is printed as a fault, above
@@ -98,7 +104,7 @@ PIANO_V2 = [
 #: The kernels of the fused tuning route (buckets up to 8,388,608 samples)
 #: and of the unfused one (longer buckets).
 FUSED_ROUTE = ("bisect16_pair", "histogram_threshold_plane")
-UNFUSED_ROUTE = ("bisect8", "histogram_int_plane")
+UNFUSED_ROUTE = ("bisect8_keys", "histogram_int_plane")
 
 #: Fixtures whose true spectra sit below the f32 DFT noise floor (pure
 #: tones and dyads, tests/test_tpu_drift.py:_degenerate): held at 2e-2 and
@@ -247,6 +253,18 @@ def hold_timbral_fft(x, n_frames: int, offset: int, label: str) -> float:
     print(f"  timbral_fft {label} {list(got.shape)}, offset {offset}: relative errors {rels}, "
           f"geo_mean max {geo_max:.3g} mean {geo.mean().item():.3g}, below max diff {below}",
           flush=True)
+    # the frame behind that maximum: where it lies, how loud it is, and how
+    # far its spectrum reaches down (a bin near zero moves the log2 sum)
+    row, f = divmod(int(geo.argmax()), n_frames)
+    start = f * DK.TIMBRAL_HOP - offset
+    seg = x[row, max(start, 0) : max(start + DK.TIMBRAL_WINDOW, 0)]
+    rms = math.sqrt(float((seg * seg).sum()) / DK.TIMBRAL_WINDOW)
+    row_rms = x[row].square().mean().sqrt().item()
+    fm = DK.frame_dft_mags_plain(x[row : row + 1], DK.TIMBRAL_HOP, offset - f * DK.TIMBRAL_HOP, 1)
+    print(f"  timbral_fft {label}: worst geo_mean frame {f} of row (song or shard) {row}, samples "
+          f"[{start}, {start + DK.TIMBRAL_WINDOW}): frame RMS {rms:.6g} (row RMS {row_rms:.6g}), "
+          f"magnitudes min {fm.min().item():.3g} median {fm.median().item():.3g} max "
+          f"{fm.max().item():.3g}", flush=True)
     if rel > 1e-5 or below > 1 or geo_max > 1e-4:
         fail(f"timbral_fft {label} vs plain: relative {rel:.3g} (limit 1e-5), geo_mean "
              f"{geo_max:.3g} (limit 1e-4), below {below} (limit 1)")
@@ -330,6 +348,35 @@ def profile_batch(batch, lengths) -> None:
         print(f"  {dt / 1e3:9.3f} ms {count:7d}x {key[:90]}")
 
 
+def hold_tuning_routes(spectrum, frame_mask, label: str) -> None:
+    """The unfused tuning estimate against the fused route's on the same
+    spectra, bit for bit, and the device time of both."""
+    from bliss_tpu_torch.models import chroma as CH
+
+    unfused = CH.estimate_tuning(spectrum, frame_mask, 8192)
+    fused = CH._estimate_tuning_fused(spectrum, frame_mask, 8192)
+    if not torch.equal(unfused, fused):
+        fail(f"{label}: unfused tuning {unfused.tolist()} != fused {fused.tolist()}")
+    unfused_ms = time_ms(lambda: CH.estimate_tuning(spectrum, frame_mask, 8192), 3)
+    fused_ms = time_ms(lambda: CH._estimate_tuning_fused(spectrum, frame_mask, 8192), 3)
+    route = "fused" if CH.uses_fused_tuning(frame_mask.shape[1], torch.float32) else "unfused"
+    print(f"  {label}: unfused tuning == fused route's, bit for bit: {unfused.tolist()}; "
+          f"tuning stage {unfused_ms:.3f} ms unfused, {fused_ms:.3f} ms fused (this bucket's "
+          f"route: {route})", flush=True)
+
+
+def plain_radix_select(values, mask, q: float = 0.5):
+    """The whole radix select by the plain version of its key entry."""
+    from bliss_tpu_torch.ops import tuning_kernels as TK
+
+    b = values.shape[0]
+    state = torch.zeros((b, 5), dtype=torch.int64, device=values.device)
+    median = torch.empty(b, dtype=torch.float32, device=values.device)
+    for level in range(4):
+        TK.bisect8_keys_plain(values.view(b, -1), mask.view(b, -1), level, state, q, median)
+    return median
+
+
 def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bool) -> np.ndarray:
     """One long bucket on the card: the unfused route's kernels at full
     width against their plain versions (times, bounds, library calls),
@@ -374,9 +421,34 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail(f"{label}: bisect8 != plain: {got.tolist()} {want.tolist()}")
-    thr = TK.masked_quantile_midpoint_radix(mags, pos)
-    thr_sort = RD.masked_quantile_midpoint(mags.reshape(n_songs, -1), pos.reshape(n_songs, -1))
-    if not torch.equal(thr, thr_sort):
+    # the key entry: every level, both ranks, and the state it carries, over
+    # the frame-major storage behind the `[B, rows, F]` views, which the
+    # select reads in place (as `estimate_tuning` hands it over)
+    mags_fm, pos_fm = mags.transpose(1, 2), pos.transpose(1, 2)
+    vals = mags_fm.view(n_songs, -1)
+    mflat = pos_fm.view(n_songs, -1)
+    state_k = torch.zeros((n_songs, 5), dtype=torch.int64, device=dev)
+    state_p = state_k.clone()
+    med_k = torch.empty(n_songs, dtype=torch.float32, device=dev)
+    med_p = torch.empty_like(med_k)
+    states = []
+    for level in range(4):
+        states.append(state_k.clone())
+        got = TK.bisect8_keys(vals, mflat, level, state_k, 0.5, med_k)
+        want = TK.bisect8_keys_plain(vals, mflat, level, state_p, 0.5, med_p)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(state_k, state_p)):
+            fail(f"{label}: bisect8_keys level {level} != plain: {got.tolist()} {want.tolist()} "
+                 f"state {state_k.tolist()} {state_p.tolist()}")
+    if not torch.equal(med_k, med_p) or not torch.equal(state_k[:, 4], n_peaks.to(torch.int64)):
+        fail(f"{label}: bisect8_keys median {med_k.tolist()} != plain {med_p.tolist()}")
+    _build.reset_launches()
+    thr = TK.masked_quantile_midpoint_radix(mags_fm, pos_fm)
+    select_launches = dict(_build.LAUNCHES)
+    if select_launches != {"bisect8_keys": 4}:
+        fail(f"{label}: one radix select launched {select_launches}, expected 4 x bisect8_keys")
+    thr_sort = RD.masked_quantile_midpoint(vals, mflat)
+    if not (torch.equal(thr, thr_sort) and torch.equal(thr, med_k)):
         fail(f"{label}: radix median != sort median: {thr.tolist()} {thr_sort.tolist()}")
     sel = pos & (mags >= thr.view(-1, 1, 1))
     idx_m = CH.tuning_bin_plane(pitches, sel)
@@ -384,15 +456,20 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     if not torch.equal(hist, histp):
         fail(f"{label}: histogram_int_plane != plain")
     n_el = plane.numel()
-    print(f"  {label}: {int(n_peaks.sum())} peaks in {n_el} plane elements; bisect8, the radix "
-          f"median and histogram_int_plane exact", flush=True)
+    n_valid = int(n_peaks.sum())
+    print(f"  {label}: {n_valid} peaks in {n_el} plane elements; bisect8_keys (4 levels x 2 ranks), "
+          f"bisect8, the radix median (4 launches) and histogram_int_plane exact", flush=True)
 
     # times: the kernels, their plain versions, and the library calls
     b8_ms = time_ms(lambda: TK.bisect8(plane, k), 20)
     b8_plain = time_ms(lambda: TK.bisect8_plain(plane, k), 3)
-    select_ms = time_ms(lambda: TK.masked_quantile_midpoint_radix(mags, pos), 5)
-    vals = mags.reshape(n_songs, -1)
-    mflat = pos.reshape(n_songs, -1)
+    key_ms = [
+        time_ms(lambda: TK.bisect8_keys(vals, mflat, level, states[level].clone(), 0.5, med_k), 20)
+        for level in range(4)
+    ]
+    key_plain = time_ms(lambda: TK.bisect8_keys_plain(vals, mflat, 1, states[1].clone()), 3)
+    select_ms = time_ms(lambda: TK.masked_quantile_midpoint_radix(mags_fm, pos_fm), 20)
+    select_plain = time_ms(lambda: plain_radix_select(mags_fm, pos_fm), 2)
     inf_vals = torch.where(mflat, vals, float("inf"))
     kf = [int(r) + 1 for r in ranks[0].tolist()]
     kc = [int(r) + 1 for r in ranks[1].tolist()]
@@ -419,35 +496,50 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     bincount_ms = time_ms(lambda: torch.bincount(offsets, minlength=n_songs * 100 + 1), 5)
     b8_bound = bound(n_el + n_songs * 12, n_el)
     hi_bound = bound(idx_m.numel() * 4 + n_songs * 400, idx_m.numel())
-    print(f"  {label} bisect8: {b8_ms:.4f} ms (plain {b8_plain:.4f}, bound {b8_bound[0]:.4f} by "
-          f"{b8_bound[1]}); whole radix select {select_ms:.4f} ms vs torch.kthvalue x {2 * n_songs} "
-          f"{kth_ms:.4f} ms, torch.nanquantile {nanq_ms} ms", flush=True)
+    # one key launch reads the mask once and the value of each valid element
+    # (what this run's data needs), and writes 16 bytes a song; the select
+    # is four of them plus the state and the median
+    key_bytes = n_el + 4 * n_valid + n_songs * (40 + 16)
+    key_bound = bound(key_bytes, n_el + 4 * n_valid)
+    sel_bound = bound(4 * key_bytes + n_songs * 4, 4 * (n_el + 4 * n_valid))
+    print(f"  {label} bisect8_keys: {sum(key_ms) / 4:.4f} ms a launch (levels 0-3: "
+          f"{', '.join(f'{t:.4f}' for t in key_ms)}, each with a clone of its state and its own "
+          f"zeroed counters; plain, one level, {key_plain:.4f}; bound {key_bound[0]:.4f} by "
+          f"{key_bound[1]}); whole radix select {select_ms:.4f} ms, 4 launches (plain {select_plain:.4f}, bound "
+          f"{sel_bound[0]:.4f} by {sel_bound[1]}) vs torch.kthvalue x {2 * n_songs} {kth_ms:.4f} "
+          f"ms, torch.nanquantile {nanq_ms} ms; bisect8 (int8 plane, one rank) {b8_ms:.4f} ms "
+          f"(plain {b8_plain:.4f}, bound {b8_bound[0]:.4f} by {b8_bound[1]})", flush=True)
+    if nanq_ms is not None and select_ms >= nanq_ms:
+        print(f"  FAULT: the radix select ({select_ms:.4f} ms) is not under torch.nanquantile "
+              f"({nanq_ms:.4f} ms)", flush=True)
     print(f"  {label} histogram_int_plane: {hi_ms:.4f} ms (plain {hi_plain:.4f}, bound "
           f"{hi_bound[0]:.4f} by {hi_bound[1]}); torch.bincount {bincount_ms:.4f} ms", flush=True)
     if record_json:
+        # row 9 is the whole select as the path runs it (4 launches of the
+        # key entry), so that its time, bound, plain and library columns
+        # speak of one function; one launch and the int8 entry ride along
         for name, err_ms, plain_ms, bnd, lib in (
-            ("bisect8", b8_ms, b8_plain, b8_bound, nanq_ms),
+            ("bisect8_keys", select_ms, select_plain, sel_bound, nanq_ms),
             ("histogram_int_plane", hi_ms, hi_plain, hi_bound, bincount_ms),
         ):
             results[name] = {
                 "name": name, "route": "cuda", "source": "bliss_tpu_torch/csrc/tuning.cu",
-                "replaces": ("bliss_tpu/ops/pallas_select.py:39" if name == "bisect8"
+                "replaces": ("bliss_tpu/ops/pallas_select.py:39" if name == "bisect8_keys"
                              else "bliss_tpu/ops/pallas_hist.py:45"),
                 "launches": 0, "max_abs_err": 0.0, "ms": err_ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
             }
+        results["bisect8_keys"].update({
+            "what": "whole radix select, 4 launches",
+            "launch_ms": sum(key_ms) / 4, "launch_plain_ms": key_plain,
+            "launch_bound_ms": key_bound[0],
+            "int8_entry": {"name": "bisect8", "ms": b8_ms, "plain_ms": b8_plain,
+                           "bound_ms": b8_bound[0], "bound_by": b8_bound[1]},
+        })
 
-    # the unfused tuning equals the fused route's on the same spectra
-    unfused = CH.estimate_tuning(spectrum, frame_mask, 8192)
-    fused = CH._estimate_tuning_fused(spectrum, frame_mask, 8192)
-    if not torch.equal(unfused, fused):
-        fail(f"{label}: unfused tuning {unfused.tolist()} != fused {fused.tolist()}")
-    unfused_ms = time_ms(lambda: CH.estimate_tuning(spectrum, frame_mask, 8192), 3)
-    fused_ms = time_ms(lambda: CH._estimate_tuning_fused(spectrum, frame_mask, 8192), 3)
-    print(f"  {label}: unfused tuning == fused route's, bit for bit: {unfused.tolist()}; "
-          f"tuning stage {unfused_ms:.3f} ms unfused (this bucket's route), {fused_ms:.3f} ms "
-          f"fused", flush=True)
+    hold_tuning_routes(spectrum, frame_mask, label)
     del spectrum, pitches, mags, peak, pos, u, m, plane, idx_m, inf_vals, vals, mflat, offsets, sel
+    del states, state_k, state_p, mags_fm, pos_fm
     del x, lens, frame_mask
     torch.cuda.empty_cache()
 
@@ -640,9 +732,8 @@ def frame_span_stft(signal, hop: int, offset: int, n_frames: int, hann):
 
 def hold_frame_dft(x, hop: int, offset: int, n_frames: int, label: str) -> dict:
     """`frame_dft_mags` against its plain version (1e-5 of each frame's
-    max) and `torch.stft`, with times and the bound of this shape. The
-    bound counts what the function needs (an FFT a frame), not what the
-    kernel's direct DFT spends: that floor is printed beside it."""
+    max) and `torch.stft`, with times and the bound of this shape (what
+    the function needs: its bytes, or an FFT a frame)."""
     from bliss_tpu_torch.ops import dft_kernels as DK
 
     got = DK.frame_dft_mags(x, 512, hop, offset, n_frames)
@@ -667,10 +758,11 @@ def hold_frame_dft(x, hop: int, offset: int, n_frames: int, label: str) -> dict:
         "ops": n_fr * (512 + rfft_ops(512) + 257 * 4),
     }
     bms, by = bound(out["nbytes"], out["ops"])
-    direct_ms = n_fr * (512 + 512 * 257 * 2 * 2) / F32_OPS_PER_S * 1e3
     print(f"  frame_dft_mags {label} {list(got.shape)}: relative error {rel:.3g}, {out['ms']:.4f} ms "
           f"(plain {out['plain_ms']:.4f}, torch.stft {out['library_ms']:.4f}, bound {bms:.4f} by "
-          f"{by}; the direct DFT's own operations at the f32 peak {direct_ms:.4f})", flush=True)
+          f"{by})", flush=True)
+    if out["ms"] >= out["library_ms"]:
+        print(f"  FAULT: frame_dft_mags {label} is not under torch.stft + abs", flush=True)
     return out
 
 
@@ -880,7 +972,21 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     med_sort = RD.masked_quantile_midpoint(pmags.reshape(1, -1), pos.reshape(1, -1))[0]
     if not torch.equal(med, med_sort):
         fail(f"long song: global median {med.item()!r} != sort median {med_sort.item()!r}")
-    del pitches, pmags, peak, pos
+    # what the sharded path pays for that median (2 x 32 eager counting
+    # rounds over the whole plane) beside its whole chroma stage, and what
+    # the radix select's key entry takes for the same plane as one song
+    one_v, one_m = pmags.transpose(1, 2).view(1, -1), pos.transpose(1, 2).view(1, -1)
+    if not torch.equal(TK.masked_quantile_midpoint_radix(one_v, one_m)[0], med):
+        fail("long song: radix select over the sharded plane != the global median")
+    gm_ms = time_ms(lambda: LS._global_median_midpoint(pmags, pos), 3)
+    radix_ms = time_ms(lambda: TK.masked_quantile_midpoint_radix(one_v, one_m), 10)
+    n_plane = pmags.numel()
+    del pitches, pmags, peak, pos, one_v, one_m
+    chroma_ms = time_ms(lambda: LS._chroma_raw(ext, shard_len, fps_max, n, torch.float32, tab), 2)
+    print(f"  sharded chroma stage {chroma_ms:.3f} ms, of it _global_median_midpoint alone "
+          f"{gm_ms:.3f} ms ({100 * gm_ms / chroma_ms:.1f}%; 64 counting rounds over {n_plane} "
+          f"elements); the radix select (4 x bisect8_keys) on the same plane {radix_ms:.4f} ms "
+          f"[{card}]", flush=True)
     bin_plane, _ = LS._tuning_planes(spectrum, valid)
     hist, histp = TK.histogram_int_plane(bin_plane, 100), TK.histogram_int_plane_plain(bin_plane, 100)
     if not torch.equal(hist, histp):
@@ -1015,6 +1121,7 @@ def main() -> None:
     from bliss_tpu_torch.ops import _build
     from bliss_tpu_torch.ops import dft_kernels as DK
     from bliss_tpu_torch.ops import tuning_kernels as TK
+    from bliss_tpu_torch.ops.spectral import stft
     from bliss_tpu_torch.ops.windows import (
         n_frames_stft,
         n_frames_strided,
@@ -1192,6 +1299,10 @@ def main() -> None:
     if np.abs(v2[:, :10] - v1[:, :10]).max() > 1e-6:
         fail("V1 and V2 disagree on the shared first 10 features")
     stage_breakdown(x, lens, frame_mask, nh)
+    # both tuning routes below the gate that picks one by the bucket's length
+    hold_tuning_routes(
+        stft(x, 8192, 2205, lens, nfc), frame_mask, f"{b} x {args.seconds / 60:g}-min"
+    )
     if args.profile:
         profile_batch(batch, lengths)
 

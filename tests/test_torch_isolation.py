@@ -120,12 +120,49 @@ def test_cuda_path_is_f32_only():
         ("ct_stft.cu", "pallas_dft.py:_make_ct_kernel"),
         ("frame_dft.cu", "pallas_dft.py:53 _make_kernel"),
         ("frame_dft.cu", "pallas_dft.py:80 _make_timbral_kernel"),
+        ("frame_dft.cu", "Bound on the card, frame_dft_mags: bytes"),
+        ("frame_dft.cu", "Bound on the card, timbral_flat: operations"),
+        ("tuning.cu", "bisect8_keys"),
     ],
 )
 def test_kernel_sources_name_what_they_replace(source, replaces):
     text = (REPO / "bliss_tpu_torch" / "csrc" / source).read_text()
     assert replaces in text
     assert "Bound on the card" in text
+
+
+def _kernel_body(text: str, name: str) -> str:
+    """The text of `__global__` function `name`, up to the next one."""
+    start = text.index(f"\n{name}(")
+    end = text.find("__global__", start)
+    return text[start : end if end > 0 else len(text)]
+
+
+def test_frame_dft_mags_kernel_is_an_fft():
+    """The magnitudes kernel transforms by the warp FFT of fft_common.cuh
+    and forms no direct DFT product; its note says so. The flat timbral
+    kernel keeps the direct product."""
+    csrc = REPO / "bliss_tpu_torch" / "csrc"
+    text = (csrc / "frame_dft.cu").read_text()
+    body = _kernel_body(text, "frame_dft_mags_kernel")
+    assert "warp_rfft512_mags(" in body and "accumulate(" not in body
+    assert "accumulate(" in _kernel_body(text, "timbral_flat_kernel")
+    note = text[: text.index("#include")]
+    assert "warp_rfft512_mags" in note and "a frame per warp" in note
+    assert "warp_rfft512_mags" in (csrc / "fft_common.cuh").read_text()
+    for banned in ("cufft", "cub/"):
+        assert banned not in text.lower()
+
+
+def test_radix_counting_pass_is_one_template_with_two_loaders():
+    """`bisect8` and `bisect8_keys` share one counting kernel; the key entry
+    has its own C entry point and scan."""
+    text = (REPO / "bliss_tpu_torch" / "csrc" / "tuning.cu").read_text()
+    assert "template <class Loader>" in text
+    for name in ("struct PlaneLoader", "struct KeyLoader", "count8_kernel<PlaneLoader>",
+                 "count8_kernel<KeyLoader>", "select8_pair_kernel", 'extern "C" int bisect8_keys_launch'):
+        assert name in text, name
+    assert "cub/" not in text and "thrust" not in text
 
 
 def test_every_kernel_source_is_built():
