@@ -3,13 +3,13 @@
 
     python3 bliss_tpu_torch/benches/frame_fft_variants.py
 
-Builds variants of `csrc/frame_dft.cu` by textual substitution (one nvcc
-each, in parallel, into the ignored build directory), and times each at the
-long song's shape (`[8, 10,506,554]`, hop 256, 40,967 frames a shard) and
-at 8 x 5-min, hop 128, in two rounds, beside two copies PyTorch makes of
-the same bytes:
+Builds `csrc/frame_dft.cu` once per setting of its compile-time switches
+(`BLISS_FRAME_FFT_PROBE`, `_TILE`, `_WAVES`; one nvcc each, in parallel, into
+the ignored build directory), and times each at the long song's shape
+(`[8, 10,506,554]`, hop 256, 40,967 frames a shard) and at 8 x 5-min, hop
+128, in two rounds, beside two copies PyTorch makes of the same bytes:
 
-- `base`: the kernel as committed;
+- `base`: the kernel as the package builds it;
 - `no_store`: the transform without its output stores;
 - `no_fft`: staging and stores without the transform (wrong output);
 - `plain_store`: ordinary stores instead of streaming ones;
@@ -35,37 +35,25 @@ sys.path.insert(0, str(REPO))
 from bliss_tpu_torch.ops import _build  # noqa: E402
 from bliss_tpu_torch.ops import dft_kernels as DK  # noqa: E402
 
-STORE = "for (int r = 0; r < 8; ++r) __stcs(o + lane + 32 * r, mag[r]);"
-FFT = "bliss::warp_rfft512_mags(cur + j * hop, wins, scratch, tw, lane, mag, nyq);"
-WAVES = "sms) * 2 * 4"
-SUBSTITUTIONS = {
+VARIANTS = {
     "base": [],
-    "no_store": [(STORE, STORE.replace("__stcs", "if (mag[r] == -1.0f) __stcs"))],
-    "no_fft": [(FFT, "for (int r = 0; r < 8; ++r) mag[r] = cur[j * hop + lane + 32 * r] "
-                     "* tw.c_re[r]; nyq = mag[0];")],
-    "plain_store": [(STORE, "for (int r = 0; r < 8; ++r) o[lane + 32 * r] = mag[r];")],
-    "tile16": [("constexpr int kFftTile = 32;", "constexpr int kFftTile = 16;")],
-    "waves1": [(WAVES, "sms) * 2 * 1")],
-    "waves8": [(WAVES, "sms) * 2 * 8")],
+    "no_store": ["-DBLISS_FRAME_FFT_PROBE=1"],
+    "no_fft": ["-DBLISS_FRAME_FFT_PROBE=2"],
+    "plain_store": ["-DBLISS_FRAME_FFT_PROBE=3"],
+    "tile16": ["-DBLISS_FRAME_FFT_TILE=16"],
+    "waves1": ["-DBLISS_FRAME_FFT_WAVES=1"],
+    "waves8": ["-DBLISS_FRAME_FFT_WAVES=8"],
 }
 SHAPES = [(8, 10_506_554, 256, 2048 - 10_397, 40_967), (8, 7_340_032, 128, 384, 57_341)]
 
 
 def build_variants() -> dict:
-    src = (_build.CSRC / "frame_dft.cu").read_text()
     out_dir = _build.BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, pairs in SUBSTITUTIONS.items():
-        text = src
-        for old, new in pairs:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: the source no longer holds {old!r}")
-            text = text.replace(old, new)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-               str(out_dir / f"lib{name}.so"), str(cu)]
+    for name, defines in VARIANTS.items():
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *defines, "-o",
+               str(out_dir / f"lib{name}.so"), str(_build.CSRC / "frame_dft.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

@@ -47,6 +47,21 @@
 // samples are read as broadcast float4.
 #include "timbral_rows.cuh"
 
+// Compile-time switches of frame_dft_mags_kernel, for measuring where its
+// time goes (benches/frame_fft_variants.py builds one library per setting;
+// the package builds the defaults). BLISS_FRAME_FFT_PROBE: 0 the kernel, 1 the
+// transform without its output stores, 2 staging and stores without the
+// transform (wrong output), 3 ordinary stores instead of streaming ones.
+#ifndef BLISS_FRAME_FFT_TILE
+#define BLISS_FRAME_FFT_TILE 32
+#endif
+#ifndef BLISS_FRAME_FFT_WAVES
+#define BLISS_FRAME_FFT_WAVES 4
+#endif
+#ifndef BLISS_FRAME_FFT_PROBE
+#define BLISS_FRAME_FFT_PROBE 0
+#endif
+
 namespace {
 
 constexpr int kWin = 512;
@@ -54,7 +69,7 @@ constexpr int kThreads = bliss::kRowThreads;
 constexpr int kMaxHop = 256;
 constexpr int kChunk = 128;      // the reference's partial-sum width
 constexpr int kRowFrames = 8;    // frames per block, timbral rows
-constexpr int kFftTile = 32;     // frames per staged tile, magnitudes
+constexpr int kFftTile = BLISS_FRAME_FFT_TILE;  // frames per staged tile, magnitudes
 constexpr int kFftWarps = kThreads / 32;
 constexpr int kFftSpan = (kFftTile - 1) * kMaxHop + kWin;  // floats of a tile
 constexpr int kFftSmemFloats =
@@ -198,10 +213,24 @@ frame_dft_mags_kernel(const float* __restrict__ x, long long t_len,
       const int f = t * kFftTile + j;
       if (f >= n_frames) break;
       float mag[8], nyq;
+#if BLISS_FRAME_FFT_PROBE == 2
+#pragma unroll
+      for (int r = 0; r < 8; ++r) mag[r] = cur[j * hop + lane + 32 * r] * tw.c_re[r];
+      nyq = mag[0];
+#else
       bliss::warp_rfft512_mags(cur + j * hop, wins, scratch, tw, lane, mag, nyq);
+#endif
       float* o = os + static_cast<long long>(f) * kBins;
 #pragma unroll
-      for (int r = 0; r < 8; ++r) __stcs(o + lane + 32 * r, mag[r]);
+      for (int r = 0; r < 8; ++r) {
+#if BLISS_FRAME_FFT_PROBE == 1
+        if (mag[r] == -1.0f) __stcs(o + lane + 32 * r, mag[r]);  // never true
+#elif BLISS_FRAME_FFT_PROBE == 3
+        o[lane + 32 * r] = mag[r];
+#else
+        __stcs(o + lane + 32 * r, mag[r]);
+#endif
+      }
       if (lane == 0) __stcs(o + kWin / 2, nyq);
     }
     __syncthreads();  // every warp is done with tile t's buffer
@@ -282,7 +311,8 @@ extern "C" int frame_dft_mags_launch(const float* x, int batch, long long t_len,
   // and to overlap staging with transforms, short enough for ~4 waves of the
   // 2 blocks an SM holds
   const int n_tiles = (n_frames + kFftTile - 1) / kFftTile;
-  const long long want_blocks = static_cast<long long>(sms) * 2 * 4;
+  const long long want_blocks =
+      static_cast<long long>(sms) * 2 * BLISS_FRAME_FFT_WAVES;
   const long long all_tiles = static_cast<long long>(n_tiles) * batch;
   int tiles_per_block =
       static_cast<int>((all_tiles + want_blocks - 1) / want_blocks);

@@ -106,7 +106,10 @@ def _pitch_band(n_fft: int, sample_rate: int = SAMPLE_RATE):
 def _pip_stencil(spec_fm: torch.Tensor, n_fft: int):
     """The pip_track stencil over a FRAME-MAJOR spectrum `[B, F, bins]`:
     `(pitches, mags, is_peak)`, each `[B, F, rows]`, where row `i` is
-    spectrum bin `beginning + 1 + i`."""
+    spectrum bin `beginning + 1 + i`. Elementwise throughout, so the three
+    are contiguous when `spec_fm` is: `ops.spectral.stft` returns the
+    `[B, bins, F]` view of such storage, and `spec_fm` is that view
+    transposed back."""
     beginning, end = _pitch_band(n_fft)
     dtype = spec_fm.dtype
     ref_value = 0.1 * spec_fm.amax(-1, keepdim=True)  # per-frame threshold
@@ -129,7 +132,7 @@ def _pip_stencil(spec_fm: torch.Tensor, n_fft: int):
 def pip_track(spectrum: torch.Tensor, frame_mask: torch.Tensor, n_fft: int):
     """Parabolic-interpolated spectral peaks (src/chroma.rs:269-331).
     `spectrum` is `[B, bins, F]`; returns `(pitches, mags, mask)`, each
-    `[B, rows, F]`."""
+    `[B, rows, F]`, views of `_pip_stencil`'s `[B, F, rows]` tensors."""
     pitches, mags, is_peak = _pip_stencil(spectrum.transpose(1, 2), n_fft)
     mask = is_peak & frame_mask.unsqueeze(-1)
     return pitches.transpose(1, 2), mags.transpose(1, 2), mask.transpose(1, 2)
@@ -190,14 +193,16 @@ def estimate_tuning(
     (src/chroma.rs:361-391), the unfused route: the masked median of the
     peak magnitudes (`bisect8_keys` through the radix select on a CUDA f32
     tensor, a sort otherwise), then the histogram of the peaks above it."""
-    pitches, mags, peak_mask = pip_track(spectrum, frame_mask, n_fft)
-    pos_mask = peak_mask & (pitches > 0.0)
-    # a median over all elements takes them in any order: hand over the
-    # frame-major storage behind the `[B, rows, F]` views, which the select
-    # reads in place
-    threshold = masked_quantile_midpoint_all(
-        mags.transpose(1, 2), pos_mask.transpose(1, 2), 0.5
-    )
+    # the median and the histogram take a song's elements in any order, so
+    # the stage stays on the stencil's frame-major `[B, F, rows]` tensors.
+    # The select reads its planes in place and refuses a strided one:
+    # `.contiguous()` copies nothing for a spectrum made by `stft` (see
+    # `_pip_stencil`), and puts any other layout in order here, in the open.
+    pitches, mags, is_peak = _pip_stencil(spectrum.transpose(1, 2), n_fft)
+    peak_mask = is_peak & frame_mask.unsqueeze(-1)
+    pos_mask = (peak_mask & (pitches > 0.0)).contiguous()
+    mags = mags.contiguous()
+    threshold = masked_quantile_midpoint_all(mags, pos_mask, 0.5)
     sel = pos_mask & (mags >= threshold.view(-1, 1, 1))
     tuning = pitch_tuning(pitches, sel, resolution, bins_per_octave)
     return torch.where(peak_mask.flatten(1).any(1), tuning, 0.0)

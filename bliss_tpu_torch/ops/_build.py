@@ -45,7 +45,7 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -72,7 +72,7 @@ def _start(name: str, verbose: bool):
     if out.exists():
         return out, None
     BUILD.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", _tmp(out), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", _tmp(out), str(CSRC / f"{name}.cu")]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     proc = subprocess.Popen(

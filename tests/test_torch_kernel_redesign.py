@@ -181,6 +181,39 @@ def test_radix_select_reads_any_cpu_layout_and_checks_shapes():
         )
 
 
+@pytest.mark.parametrize("route", ["fused", "framed"])
+def test_tuning_planes_of_an_stft_spectrum_are_contiguous_frame_major(route):
+    """The radix select reads its planes in place on the card and refuses a
+    strided one, so the layout the unfused tuning stage hands it is held
+    here: for a spectrum made by `stft` (either route), the stencil's
+    `[B, F, rows]` tensors, the masks built from them and the storage behind
+    `pip_track`'s `[B, rows, F]` views are contiguous, and `estimate_tuning`
+    gives the same tuning for a spectrum in any other layout."""
+    from bliss_tpu_torch.models import chroma as TC
+    from bliss_tpu_torch.ops.spectral import stft
+
+    rng = np.random.default_rng(41)
+    t = 2205 * 40
+    tone = np.sin(2 * np.pi * 447.0 * np.arange(t) / 22050.0)
+    sig = _t((tone + 0.05 * rng.standard_normal((2, t))).astype(np.float32))
+    spectrum = stft(sig, 8192, 2205, route=route)
+    assert spectrum.shape[1] == 4097 and spectrum.transpose(1, 2).is_contiguous()
+    frame_mask = torch.ones(spectrum.shape[0], spectrum.shape[2], dtype=torch.bool)
+    frame_mask[1, -7:] = False
+
+    pitches, mags, is_peak = TC._pip_stencil(spectrum.transpose(1, 2), 8192)
+    pos = is_peak & frame_mask.unsqueeze(-1) & (pitches > 0.0)
+    for plane in (pitches, mags, is_peak, pos):
+        assert plane.is_contiguous()
+    for view in TC.pip_track(spectrum, frame_mask, 8192):
+        assert view.shape[1:] == (pitches.shape[2], pitches.shape[1])
+        assert view.transpose(1, 2).is_contiguous()
+
+    want = TC.estimate_tuning(spectrum, frame_mask, 8192)
+    assert want.abs().max() > 0.0  # 447 Hz sits off the equal-tempered grid
+    assert torch.equal(TC.estimate_tuning(spectrum.contiguous(), frame_mask, 8192), want)
+
+
 # ---------------------------------------------------------------------------
 # frame_dft_mags
 # ---------------------------------------------------------------------------
