@@ -1,6 +1,8 @@
-// The two FFT bodies of the DFT kernels of this directory: a block-wide
-// shared-memory radix-2 FFT of any power-of-two length (fft_radix2_dit), and
-// a 512-point real FFT carried by one warp in registers (warp_rfft512_mags).
+// The FFT bodies of the DFT kernels of this directory: a block-wide
+// shared-memory radix-2 FFT of any power-of-two length (fft_radix2_dit); a
+// 256-point complex FFT carried by one warp in registers (warp_fft256), and
+// the 512-point real FFT built on it (warp_rfft512_mags); the register
+// butterflies dft4, dft8, dft16, which ct_stft.cu's 8192-point body uses too.
 //
 // Twiddle tables are built on the host in f64 from the INTEGER phase k
 // (tw_re[k] = cos(2*pi*k/N), tw_im[k] = -sin(2*pi*k/N), k in [0, N/2]) and
@@ -13,6 +15,31 @@ namespace bliss {
 
 __device__ __forceinline__ int bit_reverse(int v, int bits) {
   return static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - bits));
+}
+
+// Asynchronous copy of kBytes (4, 8 or 16; both addresses aligned to it)
+// from device memory to shared memory; 16-byte copies bypass L1.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+                 "n"(kBytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `kPending` of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -118,37 +145,155 @@ __device__ __forceinline__ void dft8(float (&re)[8], float (&im)[8]) {
   }
 }
 
-// W_512^p for any integer p, from the table of phases [0, 256]
-// (tw_re[k] = cos(2*pi*k/512), tw_im[k] = -sin(2*pi*k/512)): cos is even and
-// sin odd about phase 256.
-__device__ __forceinline__ void twiddle512(const float* __restrict__ tw_re,
-                                           const float* __restrict__ tw_im,
-                                           int p, float& re, float& im) {
-  p &= 511;
-  const int q = p <= 256 ? p : 512 - p;
-  re = __ldg(tw_re + q);
-  const float s = __ldg(tw_im + q);
-  im = p <= 256 ? s : -s;
+// (re, im) *= (wr, wi)
+__device__ __forceinline__ void turn(float& re, float& im, float wr, float wi) {
+  const float r = re * wr - im * wi;
+  im = re * wi + im * wr;
+  re = r;
 }
 
-// The twiddles one lane needs, held in registers for every frame it takes.
+// 16-point DFT in place, natural order in and out: x[4a + b] -> X[c + 4d],
+// a 4-point DFT over a for each b, the turn W_16^(b*c), a 4-point DFT over b
+// for each c.
+__device__ __forceinline__ void dft16(float (&re)[16], float (&im)[16]) {
+  constexpr float c1 = 0.92387953251128675613f;  // cos(pi/8)
+  constexpr float s1 = 0.38268343236508977173f;  // sin(pi/8)
+  constexpr float c2 = 0.70710678118654752440f;
+  // W_16^j, j = 0..9 (the turns use b*c in {1, 2, 3, 4, 6, 9})
+  constexpr float wr[10] = {1.0f, c1, c2, s1, 0.0f, -s1, -c2, -c1, -1.0f, -c1};
+  constexpr float wi[10] = {0.0f, -s1, -c2, -c1, -1.0f, -c1, -c2, -s1, 0.0f, s1};
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    dft4(re[b], im[b], re[4 + b], im[4 + b], re[8 + b], im[8 + b], re[12 + b],
+         im[12 + b]);
+  }
+  // re[b + 4c] now holds the b-th transform's bin c
+#pragma unroll
+  for (int b = 1; b < 4; ++b) {
+#pragma unroll
+    for (int c = 1; c < 4; ++c) {
+      turn(re[b + 4 * c], im[b + 4 * c], wr[b * c], wi[b * c]);
+    }
+  }
+  float tr[16], ti[16];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    dft4(re[4 * c], im[4 * c], re[4 * c + 1], im[4 * c + 1], re[4 * c + 2],
+         im[4 * c + 2], re[4 * c + 3], im[4 * c + 3]);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      tr[c + 4 * d] = re[4 * c + d];
+      ti[c + 4 * d] = im[4 * c + d];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    re[k] = tr[k];
+    im[k] = ti[k];
+  }
+}
+
+// W_N^p for any integer p, from the table of phases [0, N/2]
+// (tw_re[k] = cos(2*pi*k/N), tw_im[k] = -sin(2*pi*k/N)): cos is even and sin
+// odd about phase N/2.
+template <int N>
+__device__ __forceinline__ void twiddle(const float* __restrict__ tw_re,
+                                        const float* __restrict__ tw_im, int p,
+                                        float& re, float& im) {
+  p &= N - 1;
+  const int q = p <= N / 2 ? p : N - p;
+  re = __ldg(tw_re + q);
+  const float s = __ldg(tw_im + q);
+  im = p <= N / 2 ? s : -s;
+}
+
+// The twiddles of warp_fft256 for one lane, from the table of W_N (N a
+// multiple of 512: W_256^p == W_N^(p * N/256)).
+struct WarpFft256Twiddles {
+  float a_re[8], a_im[8];  // after stage 1: W_256^(4*n2*k1), lane = 4*n2 + n3
+  float b_re[8], b_im[8];  // after stage 2: W_256^(n3*(k1 + 8*k2)), lane = 4*k1 + n3
+
+  template <int N>
+  __device__ __forceinline__ void load(const float* __restrict__ tw_re,
+                                       const float* __restrict__ tw_im,
+                                       int lane) {
+    constexpr int s = N / 512;
+    const int hi = lane >> 2, lo = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      twiddle<N>(tw_re, tw_im, 8 * s * hi * j, a_re[j], a_im[j]);
+      twiddle<N>(tw_re, tw_im, 2 * s * lo * (hi + 8 * j), b_re[j], b_im[j]);
+    }
+  }
+};
+
+// The twiddles one lane of warp_rfft512_mags needs, held in registers for
+// every frame it takes.
 struct WarpFftTwiddles {
-  float a_re[8], a_im[8];  // after stage 1: W_512^(8*n2*k1), lane = 4*n2 + n3
-  float b_re[8], b_im[8];  // after stage 2: W_512^(2*n3*(k1 + 8*k2)), lane = 4*k1 + n3
+  WarpFft256Twiddles core;
   float c_re[8], c_im[8];  // untangling: W_512^(lane + 32*r)
 
   __device__ __forceinline__ void load(const float* __restrict__ tw_re,
                                        const float* __restrict__ tw_im,
                                        int lane) {
-    const int hi = lane >> 2, lo = lane & 3;
+    core.load<512>(tw_re, tw_im, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      twiddle512(tw_re, tw_im, 8 * hi * j, a_re[j], a_im[j]);
-      twiddle512(tw_re, tw_im, 2 * lo * (hi + 8 * j), b_re[j], b_im[j]);
-      twiddle512(tw_re, tw_im, lane + 32 * j, c_re[j], c_im[j]);
+      twiddle<512>(tw_re, tw_im, lane + 32 * j, c_re[j], c_im[j]);
     }
   }
 };
+
+// The 256-point complex FFT Z[k] = sum_m z[m] W_256^(m*k) by the 32 lanes of
+// one warp: on entry lane q holds z[q + 32*j] in register j, on return
+// Z[q + 32*r] in register r. `scratch` is kWarpFftScratch floats of shared
+// memory owned by this warp, 8-byte aligned. Every lane must call this.
+__device__ __forceinline__ void warp_fft256(float (&re)[8], float (&im)[8],
+                                            float* scratch,
+                                            const WarpFft256Twiddles& tw,
+                                            int lane) {
+  // stage 1: lane (n2, n3) transforms over n1, then turns by W_64^(n2*k1)
+  dft8(re, im);
+#pragma unroll
+  for (int k1 = 1; k1 < 8; ++k1) turn(re[k1], im[k1], tw.a_re[k1], tw.a_im[k1]);
+  float2* xs = reinterpret_cast<float2*>(scratch);
+  __syncwarp();  // the previous transform's last loads are done
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) {
+    xs[k1 * 36 + lane] = make_float2(re[k1], im[k1]);
+  }
+  __syncwarp();
+  // stage 2: lane (k1, n3) transforms over n2, then turns by W_256^(n3*(k1+8*k2))
+  const int g = (lane >> 2) * 36 + (lane & 3);
+#pragma unroll
+  for (int n2 = 0; n2 < 8; ++n2) {
+    const float2 v = xs[g + 4 * n2];
+    re[n2] = v.x;
+    im[n2] = v.y;
+  }
+  dft8(re, im);
+#pragma unroll
+  for (int k2 = 0; k2 < 8; ++k2) turn(re[k2], im[k2], tw.b_re[k2], tw.b_im[k2]);
+  __syncwarp();  // every lane has read stage 1's layout
+  const int t = (lane & 3) * 68 + (lane >> 2);
+#pragma unroll
+  for (int k2 = 0; k2 < 8; ++k2) {
+    xs[t + 8 * k2] = make_float2(re[k2], im[k2]);
+  }
+  __syncwarp();
+  // stage 3: lane q transforms over n3 for k1 + 8*k2 = q and q + 32, which
+  // leaves Z[q + 32*r] in register r = h + 2*k3
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int at = lane + 32 * h;
+    const float2 v0 = xs[at], v1 = xs[68 + at], v2 = xs[136 + at], v3 = xs[204 + at];
+    float r0 = v0.x, r1 = v1.x, r2 = v2.x, r3 = v3.x;
+    float i0 = v0.y, i1 = v1.y, i2 = v2.y, i3 = v3.y;
+    dft4(r0, i0, r1, i1, r2, i2, r3, i3);
+    re[h] = r0; re[h + 2] = r1; re[h + 4] = r2; re[h + 6] = r3;
+    im[h] = i0; im[h + 2] = i1; im[h + 4] = i2; im[h + 6] = i3;
+  }
+}
 
 // |X[k]| of the 512-point DFT of sig[n] * win[n] (both in shared memory, 8-byte
 // aligned), by the 32 lanes of one warp. On return lane q holds |X[q + 32*r]|
@@ -169,55 +314,7 @@ __device__ __forceinline__ void warp_rfft512_mags(
     re[n1] = v.x * w.x;
     im[n1] = v.y * w.y;
   }
-  // stage 1: lane (n2, n3) transforms over n1, then turns by W_64^(n2*k1)
-  dft8(re, im);
-#pragma unroll
-  for (int k1 = 1; k1 < 8; ++k1) {
-    const float r = re[k1] * tw.a_re[k1] - im[k1] * tw.a_im[k1];
-    im[k1] = re[k1] * tw.a_im[k1] + im[k1] * tw.a_re[k1];
-    re[k1] = r;
-  }
-  float2* xs = reinterpret_cast<float2*>(scratch);
-  __syncwarp();  // the previous frame's last loads are done
-#pragma unroll
-  for (int k1 = 0; k1 < 8; ++k1) {
-    xs[k1 * 36 + lane] = make_float2(re[k1], im[k1]);
-  }
-  __syncwarp();
-  // stage 2: lane (k1, n3) transforms over n2, then turns by W_256^(n3*(k1+8*k2))
-  const int g = (lane >> 2) * 36 + (lane & 3);
-#pragma unroll
-  for (int n2 = 0; n2 < 8; ++n2) {
-    const float2 v = xs[g + 4 * n2];
-    re[n2] = v.x;
-    im[n2] = v.y;
-  }
-  dft8(re, im);
-#pragma unroll
-  for (int k2 = 0; k2 < 8; ++k2) {
-    const float r = re[k2] * tw.b_re[k2] - im[k2] * tw.b_im[k2];
-    im[k2] = re[k2] * tw.b_im[k2] + im[k2] * tw.b_re[k2];
-    re[k2] = r;
-  }
-  __syncwarp();  // every lane has read stage 1's layout
-  const int t = (lane & 3) * 68 + (lane >> 2);
-#pragma unroll
-  for (int k2 = 0; k2 < 8; ++k2) {
-    xs[t + 8 * k2] = make_float2(re[k2], im[k2]);
-  }
-  __syncwarp();
-  // stage 3: lane q transforms over n3 for k1 + 8*k2 = q and q + 32, which
-  // leaves Z[q + 32*r] in register r = h + 2*k3
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int at = lane + 32 * h;
-    const float2 v0 = xs[at], v1 = xs[68 + at], v2 = xs[136 + at], v3 = xs[204 + at];
-    float r0 = v0.x, r1 = v1.x, r2 = v2.x, r3 = v3.x;
-    float i0 = v0.y, i1 = v1.y, i2 = v2.y, i3 = v3.y;
-    dft4(r0, i0, r1, i1, r2, i2, r3, i3);
-    re[h] = r0; re[h + 2] = r1; re[h + 4] = r2; re[h + 6] = r3;
-    im[h] = i0; im[h + 2] = i1; im[h + 4] = i2; im[h + 6] = i3;
-  }
+  warp_fft256(re, im, scratch, tw.core, lane);
   // real-input untangling with the mirror bin Z[256 - k] = c + i*d
   const int partner = (32 - lane) & 31;
 #pragma unroll

@@ -137,22 +137,6 @@ __device__ __forceinline__ void accumulate(const Tile<FT>& t, int hop, int k_re,
   }
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `kPending` of this thread's committed groups are in flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // Start the copy of the samples of tile `tile` of one song into `dst`; zeros
 // where the span leaves [0, t_len). One commit group per call and thread.
 __device__ __forceinline__ void stage_tile_async(float* dst,
@@ -164,12 +148,12 @@ __device__ __forceinline__ void stage_tile_async(float* dst,
   for (int i = threadIdx.x; i < span; i += kThreads) {
     const long long s = start + i;
     if (s >= 0 && s < t_len) {
-      cp_async4(dst + i, xs + s);
+      bliss::cp_async<4>(dst + i, xs + s);
     } else {
       dst[i] = 0.0f;
     }
   }
-  cp_async_commit();
+  bliss::cp_async_commit();
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -204,9 +188,9 @@ frame_dft_mags_kernel(const float* __restrict__ x, long long t_len,
       // the other buffer was last read before the barrier that ended tile t - 1
       stage_tile_async(smem + ((t + 1 - t_begin) & 1) * kFftSpan, xs, t_len,
                        t + 1, hop, offset);
-      cp_async_wait<1>();
+      bliss::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      bliss::cp_async_wait<0>();
     }
     __syncthreads();  // tile t (and the window) is visible to every warp
     for (int j = warp; j < kFftTile; j += kFftWarps) {

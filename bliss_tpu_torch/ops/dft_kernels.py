@@ -9,7 +9,9 @@ Six kernels, each with its plain PyTorch version in this module:
 - `ct_stft_mags` (csrc/ct_stft.cu): STFT magnitudes framed in-kernel from
   the reflect-padded signal, replacing `_make_ct_fused_kernel`;
 - `ct_frames_mags` (csrc/ct_stft.cu): the same transform over pre-framed
-  `[N, W]` input, replacing `_make_ct_kernel`;
+  `[N, W]` input, replacing `_make_ct_kernel` (at W = 8192 both run one
+  block FFT of 16 x 16 x 16 over the 4096 complex points, `ct8192_kernel`;
+  other widths a block-wide radix-2 FFT);
 - `frame_dft_mags` (csrc/frame_dft.cu): DFT magnitudes of the 512-sample
   strided frames of a signal by a warp-level FFT, replacing `_make_kernel`;
 - `timbral_flat` (csrc/frame_dft.cu): the timbral reductions of a direct
@@ -218,7 +220,9 @@ def ct_stft_mags(
 ) -> torch.Tensor:
     """|STFT| of `padded [B, Tp]`: frame f is `padded[:, f*hop : f*hop + W]`
     times the Hann window. Returns `[B, W//2+1, n_frames]`, a transposed
-    view of frame-major storage."""
+    view of frame-major storage. On the card an f32 FFT: at W = 8192 a
+    16 x 16 x 16 block FFT (csrc/ct_stft.cu `ct8192_kernel`), any other
+    width a block-wide radix-2 FFT."""
     log2w = window_length.bit_length() - 1
     if window_length != 1 << log2w or not 4 <= window_length <= 8192:
         raise ValueError(f"window {window_length}: a power of two in [4, 8192]")

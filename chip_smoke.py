@@ -10,7 +10,11 @@
 3. makes a batch of synthetic songs from `--seed` (tones, chords, clicks
    and noise), 8 x 5 minutes by default, padded to `bucket_length`;
 4. holds each kernel against its plain PyTorch version on the card, at
-   the shapes the analysis gives it, and times both;
+   the shapes the analysis gives it, and times both (a `FAULT:` line names
+   a kernel that is not under its library call); `ct_stft_mags` and
+   `ct_frames_mags` also off the path's shapes (B = 3, frames past the end
+   of the signal, ragged frame counts, N = 1, rows at a 4-byte offset, the
+   radix-2 body's widths 2048 and 4096);
 5. drives `analyze_batch` (V2, then V1) on the card with the launch
    counts reset just before, fails if any kernel did not run, and times
    each descriptor stage alone and both tuning routes on the batch's
@@ -798,7 +802,57 @@ def hold_ct_frames(frames, label: str) -> dict:
     print(f"  ct_frames {label} {list(frames.shape)}: relative error {rel:.3g} of the frame max, "
           f"{out['ms']:.4f} ms (plain {out['plain_ms']:.4f}, torch.fft.rfft {out['library_ms']:.4f}, "
           f"bound {bms:.4f} by {by})", flush=True)
+    if out["ms"] >= out["library_ms"]:
+        print(f"  FAULT: ct_frames {label} is not under torch.fft.rfft + abs", flush=True)
     return out
+
+
+def hold_ct_edge_cases(dev) -> None:
+    """`ct_stft_mags` and `ct_frames_mags` against their plain versions
+    (1e-5 of each frame's max) where the path's shapes do not reach: B = 3
+    songs of an odd length (1,350 frames, no multiple of the blocks the
+    card holds), frames that run past the end of the signal (zeros there;
+    the wrapper refuses them, so through the C entry point), N = 1 and a
+    ragged N of pre-framed rows, rows at a 4-byte offset (no 8-byte
+    loads), and the widths 2048 and 4096, which take the radix-2 body."""
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.ops import dft_kernels as DK
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    held = []
+
+    def check(label, got, want, dim):
+        torch.cuda.synchronize()
+        rel = ((got - want).abs().amax(dim) / want.amax(dim).clamp(min=1e-30)).max().item()
+        if not torch.isfinite(got).all() or rel > 1e-5:
+            fail(f"{label} vs plain: {rel:.3g} of each frame's max (limit 1e-5)")
+        held.append(f"{label} {rel:.2g}")
+
+    padded = torch.randn((3, 1_000_003), generator=gen, device=dev) * 0.1
+    for w, hop in ((8192, 2205), (2048, 512)):
+        nf = (padded.shape[1] - w) // hop + 1
+        check(f"ct_stft [3, 1000003] W {w} hop {hop} ({nf} frames a song)",
+              DK.ct_stft_mags(padded, w, hop, nf), DK.ct_stft_mags_plain(padded, w, hop, nf), 1)
+    w, hop = 8192, 2205
+    nf = (padded.shape[1] - w) // hop + 5
+    win, tw = DK._constants(w, str(dev))
+    out = torch.empty((3, nf, w // 2 + 1), device=dev)
+    fn = _build.function("ct_stft", "ct_stft_launch", DK._FRAME_ARGS)
+    _build.check("ct_stft", fn(
+        _build.ptr(padded), 3, padded.shape[1], nf, hop, 13, _build.ptr(win), _build.ptr(tw[0]),
+        _build.ptr(tw[1]), _build.ptr(out), _build.stream_ptr(dev)))
+    ext = torch.nn.functional.pad(padded, (0, (nf - 1) * hop + w - padded.shape[1]))
+    check(f"ct_stft, the last 4 of {nf} frames past the end", out.transpose(1, 2),
+          DK.ct_stft_mags_plain(ext, w, hop, nf), 1)
+    for n in (1, 1001):
+        frames = torch.randn((n, w), generator=gen, device=dev) * 0.1
+        check(f"ct_frames [{n}, {w}]", DK.ct_frames_mags(frames), DK.ct_frames_mags_plain(frames), 0)
+    frames = (torch.randn(257 * w + 1, generator=gen, device=dev) * 0.1)[1:].view(257, w)
+    check(f"ct_frames [257, {w}] at a 4-byte offset", DK.ct_frames_mags(frames),
+          DK.ct_frames_mags_plain(frames), 0)
+    frames = torch.randn((300, 4096), generator=gen, device=dev) * 0.1
+    check("ct_frames [300, 4096]", DK.ct_frames_mags(frames), DK.ct_frames_mags_plain(frames), 0)
+    print("  ct edge cases vs plain, of each frame's max: " + "; ".join(held), flush=True)
 
 
 def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int, card: str) -> None:
@@ -1233,6 +1287,9 @@ def main() -> None:
         time_ms(library_stft, 5),
     )
     print(f"  ct_stft relative error {rel:.3g} of the frame max")
+    if results["ct_stft"]["ms"] >= results["ct_stft"]["library_ms"]:
+        print("  FAULT: ct_stft at the main path's shape is not under torch.stft + abs", flush=True)
+    hold_ct_edge_cases(dev)
 
     # tuning planes of this batch's spectrum, as the chroma stage builds them
     frame_mask = torch.arange(nfc, device=dev) < n_frames_stft(lens, 2205).unsqueeze(-1)

@@ -154,6 +154,29 @@ def test_frame_dft_mags_kernel_is_an_fft():
         assert banned not in text.lower()
 
 
+def test_ct_stft_8192_body_is_a_block_fft():
+    """At 8192 points both CT entries run `ct8192_kernel`: radix-16 passes
+    (`dft16`) ending in the shared `last_pass`, no radix-2 stage; the
+    radix-2 body stays for the other widths. The note names both Pallas
+    kernels, the bound and the design; the warp core of `frame_dft_mags`
+    is the factored `warp_fft256`."""
+    csrc = REPO / "bliss_tpu_torch" / "csrc"
+    text = (csrc / "ct_stft.cu").read_text()
+    body = _kernel_body(text, "ct8192_kernel")
+    assert body.count("bliss::dft16(") >= 2 and "last_pass(" in body
+    assert "fft_radix2_dit" not in body
+    assert "fft_radix2_dit(" in _kernel_body(text, "ct_mags_kernel")
+    note = text[: text.index("#include")]
+    for phrase in ("_make_ct_fused_kernel", "_make_ct_kernel", "Bound on the card: bytes",
+                   "671 MB", "16 x 16 x 16", "INTEGER phase"):
+        assert phrase in note, phrase
+    common = (csrc / "fft_common.cuh").read_text()
+    assert "void dft16(" in common
+    assert "warp_fft256(re, im, scratch, tw.core, lane);" in common
+    for banned in ("cufft", "cub/"):
+        assert banned not in text.lower()
+
+
 def test_radix_counting_pass_is_one_template_with_two_loaders():
     """`bisect8` and `bisect8_keys` share one counting kernel; the key entry
     has its own C entry point and scan."""

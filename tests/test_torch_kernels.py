@@ -135,14 +135,124 @@ def _bit_reverse(n_bits):
     return np.array([int(format(k, f"0{n_bits}b")[::-1], 2) for k in v])
 
 
+def _dft4(r0, i0, r1, i1, r2, i2, r3, i3):
+    """csrc/fft_common.cuh:dft4 (natural order in and out)."""
+    s0r, s0i, s1r, s1i = r0 + r2, i0 + i2, r0 - r2, i0 - i2
+    s2r, s2i, s3r, s3i = r1 + r3, i1 + i3, i1 - i3, r3 - r1
+    return [s0r + s2r, s0i + s2i, s1r + s3r, s1i + s3i,
+            s0r - s2r, s0i - s2i, s1r - s3r, s1i - s3i]
+
+
+def _turn(re, im, wr, wi):
+    return re * wr - im * wi, re * wi + im * wr
+
+
+_C1, _S1, _C2 = (np.float32(v) for v in (0.92387953251128675613, 0.38268343236508977173,
+                                           0.70710678118654752440))
+_W16 = [(np.float32(1), np.float32(0)), (_C1, -_S1), (_C2, -_C2), (_S1, -_C1),
+        (np.float32(0), np.float32(-1)), (-_S1, -_C1), (-_C2, -_C2), (-_C1, -_S1),
+        (np.float32(-1), np.float32(0)), (-_C1, _S1)]
+
+
+def _dft16(re, im):
+    """csrc/fft_common.cuh:dft16 on 16 register arrays: a 4-point DFT over a
+    of x[4a + b] for each b, the turn W_16^(b*c), a 4-point DFT over b."""
+    re, im = list(re), list(im)
+    for b in range(4):
+        out = _dft4(re[b], im[b], re[4 + b], im[4 + b], re[8 + b], im[8 + b], re[12 + b], im[12 + b])
+        re[b], im[b], re[4 + b], im[4 + b], re[8 + b], im[8 + b], re[12 + b], im[12 + b] = out
+    for b in range(1, 4):
+        for c in range(1, 4):
+            i = b + 4 * c
+            re[i], im[i] = _turn(re[i], im[i], *_W16[b * c])
+    tr, ti = [None] * 16, [None] * 16
+    for c in range(4):
+        out = _dft4(*[v for j in range(4) for v in (re[4 * c + j], im[4 * c + j])])
+        for d in range(4):
+            tr[c + 4 * d], ti[c + 4 * d] = out[2 * d], out[2 * d + 1]
+    return tr, ti
+
+
+def _twiddle8192(tw, p):
+    """csrc/fft_common.cuh:twiddle<8192>: W_8192^p by the integer phase p."""
+    p = np.asarray(p) & 8191
+    q = np.where(p <= 4096, p, 8192 - p)
+    return tw[0][q], np.where(p <= 4096, tw[1][q], -tw[1][q])
+
+
+def _last_row(tid):
+    """csrc/ct_stft.cu:last_row: the bin row q of thread tid."""
+    w, lane = tid >> 5, tid & 31
+    lo = lane & 15
+    mirror = np.where((w == 0) & (lo == 0), 128, 256 - 16 * w - lo)
+    return np.where(lane < 16, 16 * w + lo, mirror)
+
+
+def _ct8192_emulated(fr, tw):
+    """numpy f32 copy of csrc/ct_stft.cu:ct8192_kernel (design 0) on
+    windowed frames `fr [F, 8192]`: thread by thread (the 256 threads on the
+    last axis), the same index split m = 256 n1 + 16 n2 + n3, k = k1 + 16 k2
+    + 256 k3, the same three radix-16 passes and exchange layouts, the same
+    integer-phase twiddles, the lane layout of the last pass and its
+    untangling against the mirror bin found by the lane ^ 16 shuffle."""
+    zr, zi = fr[:, 0::2], fr[:, 1::2]
+    tid = np.arange(256)
+    hi, lo = tid >> 4, tid & 15
+    # pass 1: thread (n2, n3) = tid transforms z[256 n1 + tid] over n1
+    re, im = _dft16([zr[:, 256 * n1 + tid] for n1 in range(16)],
+                    [zi[:, 256 * n1 + tid] for n1 in range(16)])
+    p1r, p1i = np.empty_like(zr), np.empty_like(zi)
+    for k1 in range(16):
+        if k1:
+            re[k1], im[k1] = _turn(re[k1], im[k1], *_twiddle8192(tw, 32 * hi * k1))
+        p1r[:, 256 * k1 + tid], p1i[:, 256 * k1 + tid] = re[k1], im[k1]
+    # pass 2: thread (k1, n3) = (hi, lo) transforms over n2
+    at = [256 * hi + 16 * n2 + lo for n2 in range(16)]
+    re, im = _dft16([p1r[:, a] for a in at], [p1i[:, a] for a in at])
+    lr = np.zeros((zr.shape[0], 256 * 17), np.float32)
+    li = np.zeros_like(lr)
+    for k2 in range(16):
+        re[k2], im[k2] = _turn(re[k2], im[k2], *_twiddle8192(tw, 2 * lo * (hi + 16 * k2)))
+        lr[:, (hi + 16 * k2) * 17 + lo], li[:, (hi + 16 * k2) * 17 + lo] = re[k2], im[k2]
+    # pass 3: row q transforms over n3, leaving Z[q + 256 k3] in register k3
+    q = _last_row(tid)
+    re, im = _dft16([lr[:, q * 17 + j] for j in range(16)], [li[:, q * 17 + j] for j in range(16)])
+    mags = np.empty((zr.shape[0], 4097), np.float32)
+    partner = tid ^ 16
+    for k3 in range(16):
+        c, d = re[15 - k3][:, partner], im[15 - k3][:, partner]
+        c = np.where(q == 0, re[(16 - k3) & 15], np.where(q == 128, re[15 - k3], c))
+        d = np.where(q == 0, im[(16 - k3) & 15], np.where(q == 128, im[15 - k3], d))
+        a, b = re[k3], im[k3]
+        half = np.float32(0.5)
+        er, ei, pr, pi = half * (a + c), half * (b - d), half * (b + d), half * (c - a)
+        ur, ui = _twiddle8192(tw, q + 256 * (k3 & 7))
+        wr, wi = (ur, ui) if k3 < 8 else (ui, -ur)  # W_8192^2048 == -i
+        yr, yi = er + (wr * pr - wi * pi), ei + (wr * pi + wi * pr)
+        mags[:, q + 256 * k3] = np.sqrt(yr * yr + yi * yi)
+    mags[:, 4096] = np.abs(re[0][:, 0] - im[0][:, 0])
+    return mags
+
+
+def _chroma_frames(n_frames=40):
+    """Hann-windowed 8192/2205 frames of a synthetic song, f32."""
+    from bliss_tpu_torch.ops.windows import _hann_np
+    from chip_smoke import synth_song
+
+    x = synth_song(np.random.default_rng(0), 22050 * 20)
+    frames = np.lib.stride_tricks.sliding_window_view(x, 8192)[::2205][:n_frames]
+    return frames, (frames * _hann_np(8192)).astype(np.float32)
+
+
 def test_kernel_fft_arithmetic_emulated():
     """The kernels' FFT structure, emulated in numpy f32 on frames of a
     synthetic song: the 512-point complex FFT of csrc/timbral_fft.cu and
-    csrc/specflux.cu, and the 8192-point real FFT of csrc/ct_stft.cu
-    (4096-point complex FFT + even/odd split), each within 1e-6 of the
+    csrc/specflux.cu, the block-wide radix-2 body csrc/ct_stft.cu keeps for
+    widths below 8192 (2048 here: a complex FFT of half size + even/odd
+    split), and its 8192-point body (16 x 16 x 16), each within 1e-6 of the
     frame's max of an f64 FFT; and the geometric mean of the 512-point
-    magnitudes (the flatness ingredient) no farther from f64 than
-    torch's f32 FFT, within 2x (the same f32 noise class)."""
+    magnitudes (the flatness ingredient) no farther from f64 than torch's
+    f32 FFT, within 2x (the same f32 noise class)."""
     from bliss_tpu_torch.tables import twiddles
     from bliss_tpu_torch.ops.windows import _hann_np
     from chip_smoke import synth_song
@@ -162,15 +272,16 @@ def test_kernel_fft_arithmetic_emulated():
         return np.abs(np.log2(m).mean(1) - np.log2(exact).mean(1)) * np.log(2)
 
     assert geo_err(emu).max() <= 2 * geo_err(f32).max() + 1e-7
-    # 8192: the chroma transform, packed real -> complex half size + split
-    frames = np.lib.stride_tricks.sliding_window_view(x, 8192)[::2205][:40]
-    fr = (frames * _hann_np(8192)).astype(np.float32)
-    tw = twiddles(8192)
-    rev = _bit_reverse(12)
+    # 2048: ct_stft.cu's radix-2 body, packed real -> complex half size + split
+    w = 2048
+    frames = np.lib.stride_tricks.sliding_window_view(x, w)[::512][:200]
+    fr = (frames * _hann_np(w)).astype(np.float32)
+    tw = twiddles(w)
+    rev = _bit_reverse(10)
     re, im = _radix2_emulated(
-        fr[:, 0::2][:, rev].copy(), fr[:, 1::2][:, rev].copy(), 12, tw, 2
+        fr[:, 0::2][:, rev].copy(), fr[:, 1::2][:, rev].copy(), 10, tw, 2
     )
-    m = 4096
+    m = w // 2
     k = np.arange(m + 1)
     a, b = k & (m - 1), (m - k) & (m - 1)
     ar, ai, br, bi = re[:, a], im[:, a], re[:, b], im[:, b]
@@ -181,6 +292,34 @@ def test_kernel_fft_arithmetic_emulated():
     emu = np.sqrt(xr * xr + xi * xi).astype(np.float64)
     exact = np.abs(np.fft.rfft(fr.astype(np.float64), axis=-1))
     assert (np.abs(emu - exact).max(1) / exact.max(1)).max() < 1e-6
+    # 8192: the chroma transform, ct8192_kernel's 16 x 16 x 16 body
+    _, fr = _chroma_frames()
+    emu = _ct8192_emulated(fr, twiddles(8192)).astype(np.float64)
+    exact = np.abs(np.fft.rfft(fr.astype(np.float64), axis=-1))
+    assert (np.abs(emu - exact).max(1) / exact.max(1)).max() < 1e-6
+
+
+def test_ct8192_body_emulated_matches_pallas_interpret():
+    """The 8192-point body, emulated in numpy f32 (`_ct8192_emulated`),
+    against the JAX package's CT Pallas kernel on the same frames in
+    interpret mode: within 1e-5 of each frame's max; and within 1e-6 of an
+    f64 FFT, on quiet and silent frames too."""
+    from bliss_tpu_torch.ops.windows import _hann_np
+    from bliss_tpu_torch.tables import twiddles
+
+    raw = _chroma_frames(37)[0].copy()
+    raw[5] *= 1e-4  # a quiet frame
+    raw[6] = 0.0    # silence
+    fr = (raw * _hann_np(8192)).astype(np.float32)
+    emu = _ct8192_emulated(fr, twiddles(8192))
+    want = np.asarray(JD.pallas_stft_mags_ct(jnp.asarray(raw), n_frames=raw.shape[0], interpret=True)).T
+    assert emu.shape == want.shape == (37, 4097)
+    assert np.isfinite(emu).all() and (emu[6] == 0).all()
+    scale = np.maximum(want.max(1), 1e-30)
+    assert (np.abs(emu - want).max(1) / scale).max() < 1e-5
+    exact = np.abs(np.fft.rfft(fr.astype(np.float64), axis=-1))
+    live = exact.max(1) > 0
+    assert (np.abs(emu - exact).max(1)[live] / exact.max(1)[live]).max() < 1e-6
 
 
 @pytest.mark.parametrize("name", ["timbral_fft", "specflux", "ct_stft_mags"])
@@ -308,15 +447,41 @@ def test_cuda_frame_kernels_match_plain(cuda):
     assert ((on - on_p).abs().amax(1) / on_p.abs().amax(1)).max() < 1e-5
 
 
+def _frame_rel(got, want, dim):
+    return ((got - want).abs().amax(dim) / want.amax(dim).clamp(min=1e-30)).max()
+
+
 @pytest.mark.cuda
 def test_cuda_ct_kernel_matches_plain(cuda):
+    """Both entries of csrc/ct_stft.cu against their plain versions, 1e-5
+    of each frame's max: B = 2 and B = 3 (an odd length, 1,350 frames: no
+    multiple of the card's resident blocks), frames past the end of the
+    signal (zeros; through the C entry, the wrapper refuses them), N = 1 and
+    a ragged N of pre-framed rows, rows at a 4-byte offset, and the widths
+    2048 and 4096 of the radix-2 body."""
     rng = np.random.default_rng(12)
-    padded = torch.as_tensor((rng.normal(size=(2, 120000)) * 0.1).astype(np.float32), device=cuda)
-    for w, hop in ((8192, 2205), (2048, 512)):
-        nf = (padded.shape[1] - w) // hop + 1
-        got = TD.ct_stft_mags(padded, w, hop, nf)
-        want = TD.ct_stft_mags_plain(padded, w, hop, nf)
-        assert ((got - want).abs().amax(1) / want.amax(1)).max() < 1e-5
+    for shape in ((2, 120000), (3, 1_000_003)):
+        padded = torch.as_tensor((rng.normal(size=shape) * 0.1).astype(np.float32), device=cuda)
+        for w, hop in ((8192, 2205), (2048, 512)):
+            nf = (padded.shape[1] - w) // hop + 1
+            got = TD.ct_stft_mags(padded, w, hop, nf)
+            want = TD.ct_stft_mags_plain(padded, w, hop, nf)
+            assert _frame_rel(got, want, 1) < 1e-5
+    w, hop = 8192, 2205
+    nf = (padded.shape[1] - w) // hop + 5
+    win, tw = TD._constants(w, str(padded.device))
+    out = torch.empty((3, nf, w // 2 + 1), device=cuda)
+    fn = _build.function("ct_stft", "ct_stft_launch", TD._FRAME_ARGS)
+    _build.check("ct_stft", fn(
+        _build.ptr(padded), 3, padded.shape[1], nf, hop, 13, _build.ptr(win), _build.ptr(tw[0]),
+        _build.ptr(tw[1]), _build.ptr(out), _build.stream_ptr(padded.device)))
+    ext = torch.nn.functional.pad(padded, (0, (nf - 1) * hop + w - padded.shape[1]))
+    assert _frame_rel(out.transpose(1, 2), TD.ct_stft_mags_plain(ext, w, hop, nf), 1) < 1e-5
+    for n, width, offset in ((1, 8192, 0), (1001, 8192, 0), (257, 8192, 1), (300, 4096, 0)):
+        flat = torch.as_tensor((rng.normal(size=n * width + offset) * 0.1).astype(np.float32), device=cuda)
+        frames = flat[offset:].view(n, width)
+        got, want = TD.ct_frames_mags(frames), TD.ct_frames_mags_plain(frames)
+        assert _frame_rel(got, want, 0) < 1e-5
 
 
 @pytest.mark.cuda
