@@ -1,5 +1,6 @@
 // The FFT bodies of the DFT kernels of this directory: a block-wide
-// shared-memory radix-2 FFT of any power-of-two length (fft_radix2_dit); a
+// shared-memory radix-2 FFT of any power-of-two length (fft_radix2_dit), and
+// the same arithmetic at 512 points on one warp (warp_radix2_512_mags); a
 // 256-point complex FFT carried by one warp in registers (warp_fft256), and
 // the 512-point real FFT built on it (warp_rfft512_mags); the register
 // butterflies dft4, dft8, dft16, which ct_stft.cu's 8192-point body uses too.
@@ -300,6 +301,11 @@ __device__ __forceinline__ void warp_fft256(float (&re)[8], float (&im)[8],
 // in mag[r] and every lane holds |X[256]| of its own view in nyq (lane 0's is
 // the bin). `scratch` is kWarpFftScratch floats of shared memory owned by this
 // warp, 8-byte aligned. Every lane of the warp must call this.
+// The windowed samples are rounded to f32 before the first butterfly
+// (__fmul_rn), as a transform of the f32 windowed frame (the plain versions'
+// input) rounds them; a product the compiler fused into the first
+// butterfly's addition moved a bin near zero (a DC of 4e-7 under a peak of
+// 6.6) by 15%.
 __device__ __forceinline__ void warp_rfft512_mags(
     const float* sig, const float* win, float* scratch,
     const WarpFftTwiddles& tw, int lane, float (&mag)[8], float& nyq) {
@@ -311,8 +317,8 @@ __device__ __forceinline__ void warp_rfft512_mags(
   for (int n1 = 0; n1 < 8; ++n1) {
     const float2 v = s2[32 * n1];
     const float2 w = w2[32 * n1];
-    re[n1] = v.x * w.x;
-    im[n1] = v.y * w.y;
+    re[n1] = __fmul_rn(v.x, w.x);
+    im[n1] = __fmul_rn(v.y, w.y);
   }
   warp_fft256(re, im, scratch, tw.core, lane);
   // real-input untangling with the mirror bin Z[256 - k] = c + i*d
@@ -333,6 +339,162 @@ __device__ __forceinline__ void warp_rfft512_mags(
     mag[r] = sqrtf(yr * yr + yi * yi);
   }
   nyq = fabsf(re[0] - im[0]);
+}
+
+// ---------------------------------------------------------------------------
+// One warp, one 512-point FFT of real input by fft_radix2_dit's arithmetic.
+//
+// The same butterflies, twiddles and stage order as fft_radix2_dit at n = 512
+// (a complex transform of the windowed frame with zero imaginary part, input
+// in bit-reversed order, nine decimation-in-time stages), so a frame's
+// magnitudes round as that body's do; only the schedule is a warp's: lane q
+// holds points 16 q + r of stages 1-4 in register r, a transpose through
+// padded shared memory (a slot of padding every 16 points) gives lane
+// (a, h) = a + 16 h the points a + 16 r + 256 h of stages 5-8, and stage 9
+// pairs lane a with lane a + 16 by shuffles, each lane forming 8 of the 256
+// bins below the Nyquist bin. __syncwarp() orders the shared memory, no
+// block-wide barrier is taken.
+// ---------------------------------------------------------------------------
+
+// floats of shared memory per warp, 8-byte aligned: 512 complex points and
+// their padding
+constexpr int kWarpRadix2Scratch = 2 * (512 + 32);
+
+// The twiddles of stages 5-9 of warp_radix2_512_mags, stage by stage: stage
+// s = 5 + b holds W_512^(p * (16 >> b)) for its positions p < 16 << b at
+// entries 16 ((1 << b) - 1) + p, so the lanes of a half-warp read
+// consecutive entries (no bank conflict); 496 complex values.
+constexpr int kRadix2StageTwiddles = 496;
+
+__host__ __device__ constexpr int radix2_stage_base(int b) { return 16 * ((1 << b) - 1); }
+
+// Entry i of that table from the [0, N/2] tables of W_512
+__device__ __forceinline__ float2 radix2_stage_twiddle(const float* __restrict__ tw_re,
+                                                       const float* __restrict__ tw_im,
+                                                       int i) {
+  int b = 0;
+  while (i >= radix2_stage_base(b + 1)) ++b;
+  const int phase = (i - radix2_stage_base(b)) * (16 >> b);
+  return make_float2(tw_re[phase], tw_im[phase]);
+}
+
+__host__ __device__ constexpr int rev4(int r) {
+  return ((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | ((r & 8) >> 3);
+}
+
+// fft_radix2_dit's butterfly on (i, j) with the twiddle w
+__device__ __forceinline__ void radix2_butterfly(float& ir, float& ii, float& jr, float& ji,
+                                                 float2 w) {
+  const float xr = jr * w.x - ji * w.y;
+  const float xi = jr * w.y + ji * w.x;
+  jr = ir - xr;
+  ji = ii - xi;
+  ir = ir + xr;
+  ii = ii + xi;
+}
+
+// Point 16 q + r of the bit-reversed input is sample 32 rev4(r) + rev5(q):
+// the sample of lane q's register r.
+__device__ __forceinline__ int radix2_sample(int lane, int r) {
+  return 32 * rev4(r) + static_cast<int>(__brev(static_cast<unsigned>(lane)) >> 27);
+}
+
+// What one lane of warp_radix2_512_mags holds in registers for every frame:
+// the window at its 16 samples, and W_512^(32 m), m < 8, the twiddles of
+// stages 1-4.
+struct WarpRadix2Constants {
+  float win[16];
+  float2 w16[8];
+
+  __device__ __forceinline__ void load(const float* __restrict__ window,
+                                       const float* __restrict__ tw_re,
+                                       const float* __restrict__ tw_im, int lane) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) win[r] = window[radix2_sample(lane, r)];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) w16[m] = make_float2(tw_re[32 * m], tw_im[32 * m]);
+  }
+};
+
+// |X[k]| of the 512-point DFT of sig[n] * win[n] (sig in shared memory, the
+// window in `c`), by the 32 lanes of one warp; tw is the stage table of
+// kRadix2StageTwiddles entries (radix2_stage_twiddle), in shared memory. On
+// return lane q holds
+// |X[q + 32*r]| in mag[r] and lane 0 holds |X[256]| in nyq. `scratch` is
+// kWarpRadix2Scratch floats of shared memory owned by this warp, 8-byte
+// aligned. Every lane must call this.
+__device__ __forceinline__ void warp_radix2_512_mags(const float* sig,
+                                                     const WarpRadix2Constants& c,
+                                                     float* scratch, const float2* tw,
+                                                     int lane, float (&mag)[8], float& nyq) {
+  constexpr unsigned kFull = 0xffffffffu;
+  float re[16], im[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    // rounded, as fft_radix2_dit's input is stored
+    re[r] = __fmul_rn(sig[radix2_sample(lane, r)], c.win[r]);
+    im[r] = 0.0f;
+  }
+  // stages 1-4: the pairs lie in one lane's registers
+#pragma unroll
+  for (int s = 1; s <= 4; ++s) {
+    const int half = 1 << (s - 1);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      if (r & half) continue;
+      radix2_butterfly(re[r], im[r], re[r + half], im[r + half],
+                       c.w16[(r & (half - 1)) * (8 >> (s - 1))]);
+    }
+  }
+  float2* xs = reinterpret_cast<float2*>(scratch);
+  __syncwarp();  // the previous transform's last loads are done
+#pragma unroll
+  for (int r = 0; r < 16; ++r) xs[17 * lane + r] = make_float2(re[r], im[r]);
+  __syncwarp();
+  const int a = lane & 15, h = lane >> 4;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const float2 v = xs[a + 17 * r + 272 * h];
+    re[r] = v.x;
+    im[r] = v.y;
+  }
+  // stages 5-8: bit s - 1 of the point is bit s - 5 of the register
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      if (r & (1 << b)) continue;
+      radix2_butterfly(re[r], im[r], re[r + (1 << b)], im[r + (1 << b)],
+                       tw[radix2_stage_base(b) + a + 16 * (r & ((1 << b) - 1))]);
+    }
+  }
+  // stage 9: point i = a + 16 r (lane a) pairs with i + 256 (lane a + 16);
+  // lane a forms bins a + 16 r for r < 8, lane a + 16 those for r >= 8
+  float m[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float sr = h ? re[r] : re[r + 8];
+    const float si = h ? im[r] : im[r + 8];
+    const float gr = __shfl_xor_sync(kFull, sr, 16);
+    const float gi = __shfl_xor_sync(kFull, si, 16);
+    float ir = h ? gr : re[r], ii = h ? gi : im[r];
+    float jr = h ? re[r + 8] : gr, ji = h ? im[r + 8] : gi;
+    radix2_butterfly(ir, ii, jr, ji, tw[radix2_stage_base(4) + a + 16 * (r + 8 * h)]);
+    m[r] = sqrtf(ir * ir + ii * ii);
+    if (r == 0) nyq = sqrtf(jr * jr + ji * ji);  // lane 0: X[256]
+  }
+  // bin k of lane (a, h) to lane k & 31, register k >> 5, through shared
+  // memory (16 slots of padding between the halves: no bank conflict)
+  float* ms = scratch;
+  __syncwarp();  // every lane has read stage 4's layout
+#pragma unroll
+  for (int r = 0; r < 8; ++r) ms[a + 16 * r + 144 * h] = m[r];
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int k = lane + 32 * r;
+    mag[r] = ms[k + 16 * (k >> 7)];
+  }
 }
 
 }  // namespace bliss

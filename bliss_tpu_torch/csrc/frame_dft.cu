@@ -13,15 +13,11 @@
 // Bound on the card, frame_dft_mags: bytes. Per frame 1,028 bytes of
 // magnitudes go out and 0.5-1 KB of signal comes in, against ~14k f32
 // operations of an FFT. Design: a frame per warp, never a block-wide barrier
-// inside a transform. A 256-thread block walks a run of 32-frame tiles of one
-// song; a tile's contiguous sample span (frames overlap 2-4x) is staged once
-// into shared memory by cp.async, double buffered, so the next tile loads
-// while the 8 warps transform this one (4 frames each). Zeros outside [0, T)
-// and a negative offset are handled while staging, at the span's edges only.
-// Each warp stores a frame's 257 magnitudes as 8 runs of 32 consecutive
-// floats with streaming stores: the output is written once and never read
-// back here. The twiddles (24 complex values a lane) are loaded into
-// registers once per block run.
+// inside a transform: the staged tile loop of frame_tiles.cuh (32-frame tiles
+// staged once by cp.async, double buffered, twiddles in registers per block
+// run), whose epilogue here stores a frame's 257 magnitudes as 8 runs of 32
+// consecutive floats with streaming stores: the output is written once and
+// never read back here.
 //
 // timbral_flat_launch replaces the TPU kernel
 // bliss_tpu/ops/pallas_dft.py:80 _make_timbral_kernel (via
@@ -45,35 +41,16 @@
 // sample span is staged in shared memory once; thread k owns slot k of every
 // frame of the tile, so one twiddle lookup feeds 8 frames' FMAs, and the
 // samples are read as broadcast float4.
+#include "frame_tiles.cuh"
 #include "timbral_rows.cuh"
-
-// Compile-time switches of frame_dft_mags_kernel, for measuring where its
-// time goes (benches/frame_fft_variants.py builds one library per setting;
-// the package builds the defaults). BLISS_FRAME_FFT_PROBE: 0 the kernel, 1 the
-// transform without its output stores, 2 staging and stores without the
-// transform (wrong output), 3 ordinary stores instead of streaming ones.
-#ifndef BLISS_FRAME_FFT_TILE
-#define BLISS_FRAME_FFT_TILE 32
-#endif
-#ifndef BLISS_FRAME_FFT_WAVES
-#define BLISS_FRAME_FFT_WAVES 4
-#endif
-#ifndef BLISS_FRAME_FFT_PROBE
-#define BLISS_FRAME_FFT_PROBE 0
-#endif
 
 namespace {
 
 constexpr int kWin = 512;
 constexpr int kThreads = bliss::kRowThreads;
-constexpr int kMaxHop = 256;
+constexpr int kMaxHop = bliss::kTileMaxHop;
 constexpr int kChunk = 128;      // the reference's partial-sum width
 constexpr int kRowFrames = 8;    // frames per block, timbral rows
-constexpr int kFftTile = BLISS_FRAME_FFT_TILE;  // frames per staged tile, magnitudes
-constexpr int kFftWarps = kThreads / 32;
-constexpr int kFftSpan = (kFftTile - 1) * kMaxHop + kWin;  // floats of a tile
-constexpr int kFftSmemFloats =
-    2 * kFftSpan + kWin + kFftWarps * bliss::kWarpFftScratch;
 constexpr int kBins = kWin / 2 + 1;
 
 template <int FT>
@@ -137,88 +114,40 @@ __device__ __forceinline__ void accumulate(const Tile<FT>& t, int hop, int k_re,
   }
 }
 
-// Start the copy of the samples of tile `tile` of one song into `dst`; zeros
-// where the span leaves [0, t_len). One commit group per call and thread.
-__device__ __forceinline__ void stage_tile_async(float* dst,
-                                                 const float* __restrict__ xs,
-                                                 long long t_len, int tile,
-                                                 int hop, int offset) {
-  const int span = (kFftTile - 1) * hop + kWin;
-  const long long start = static_cast<long long>(tile) * kFftTile * hop - offset;
-  for (int i = threadIdx.x; i < span; i += kThreads) {
-    const long long s = start + i;
-    if (s >= 0 && s < t_len) {
-      bliss::cp_async<4>(dst + i, xs + s);
-    } else {
-      dst[i] = 0.0f;
-    }
-  }
-  bliss::cp_async_commit();
-}
+// frame_dft_mags' epilogue: the 257 magnitudes of frame f to out[f].
+struct MagsEpilogue {
+  using Body = bliss::Rfft512Body;
+  static constexpr int kLookback = 0;
+  float* out;  // [n_frames, 257] of this song
 
-__global__ void __launch_bounds__(kThreads, 2)
+  __device__ __forceinline__ int lookback_frames(bool, int) const { return 0; }
+
+  __device__ __forceinline__ void frame(int f, int, float (&mag)[8], float nyq, int lane) {
+    float* o = out + static_cast<long long>(f) * kBins;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#if BLISS_FRAME_FFT_PROBE == 3
+      o[lane + 32 * r] = mag[r];
+#else
+      __stcs(o + lane + 32 * r, mag[r]);
+#endif
+    }
+    if (lane == 0) __stcs(o + kWin / 2, nyq);
+  }
+
+  __device__ __forceinline__ void tile_done(int, int) {}
+};
+
+__global__ void __launch_bounds__(bliss::kTileThreads, 2)
 frame_dft_mags_kernel(const float* __restrict__ x, long long t_len,
                       int n_frames, int hop, int offset, int tiles_per_block,
                       const float* __restrict__ win,
                       const float* __restrict__ tw_re,
                       const float* __restrict__ tw_im,
                       float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* wins = smem + 2 * kFftSpan;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* scratch = wins + kWin + warp * bliss::kWarpFftScratch;
-
-  const int n_tiles = (n_frames + kFftTile - 1) / kFftTile;
-  const int t_begin = blockIdx.x * tiles_per_block;
-  const int t_end = min(t_begin + tiles_per_block, n_tiles);
-  if (t_begin >= t_end) return;
-  const float* xs = x + static_cast<long long>(blockIdx.y) * t_len;
-  float* os = out + static_cast<long long>(blockIdx.y) * n_frames * kBins;
-
-  stage_tile_async(smem, xs, t_len, t_begin, hop, offset);
-  for (int i = tid; i < kWin; i += kThreads) wins[i] = win[i];
-  bliss::WarpFftTwiddles tw;
-  tw.load(tw_re, tw_im, lane);
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const float* cur = smem + ((t - t_begin) & 1) * kFftSpan;
-    if (t + 1 < t_end) {
-      // the other buffer was last read before the barrier that ended tile t - 1
-      stage_tile_async(smem + ((t + 1 - t_begin) & 1) * kFftSpan, xs, t_len,
-                       t + 1, hop, offset);
-      bliss::cp_async_wait<1>();
-    } else {
-      bliss::cp_async_wait<0>();
-    }
-    __syncthreads();  // tile t (and the window) is visible to every warp
-    for (int j = warp; j < kFftTile; j += kFftWarps) {
-      const int f = t * kFftTile + j;
-      if (f >= n_frames) break;
-      float mag[8], nyq;
-#if BLISS_FRAME_FFT_PROBE == 2
-#pragma unroll
-      for (int r = 0; r < 8; ++r) mag[r] = cur[j * hop + lane + 32 * r] * tw.c_re[r];
-      nyq = mag[0];
-#else
-      bliss::warp_rfft512_mags(cur + j * hop, wins, scratch, tw, lane, mag, nyq);
-#endif
-      float* o = os + static_cast<long long>(f) * kBins;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-#if BLISS_FRAME_FFT_PROBE == 1
-        if (mag[r] == -1.0f) __stcs(o + lane + 32 * r, mag[r]);  // never true
-#elif BLISS_FRAME_FFT_PROBE == 3
-        o[lane + 32 * r] = mag[r];
-#else
-        __stcs(o + lane + 32 * r, mag[r]);
-#endif
-      }
-      if (lane == 0) __stcs(o + kWin / 2, nyq);
-    }
-    __syncthreads();  // every warp is done with tile t's buffer
-  }
+  MagsEpilogue ep{out + static_cast<long long>(blockIdx.y) * n_frames * kBins};
+  bliss::frame_tiles(x, t_len, n_frames, hop, offset, tiles_per_block, win, tw_re,
+                     tw_im, ep);
 }
 
 // Neumaier-compensated s += p, the compensation kept in c.
@@ -270,8 +199,6 @@ timbral_flat_kernel(const float* __restrict__ x, long long t_len, int n_frames,
   }
 }
 
-bool bad_hop(int hop) { return hop <= 0 || hop > kMaxHop || hop % 4 != 0; }
-
 }  // namespace
 
 extern "C" int frame_dft_mags_launch(const float* x, int batch, long long t_len,
@@ -280,29 +207,16 @@ extern "C" int frame_dft_mags_launch(const float* x, int batch, long long t_len,
                                      const float* tw_im, float* out,
                                      cudaStream_t stream) {
   if (n_frames <= 0 || batch <= 0) return 0;
-  if (bad_hop(hop)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kSmemBytes = kFftSmemFloats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      frame_dft_mags_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+  if (bliss::frame_tiles_bad_hop(hop)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmemBytes =
+      bliss::tile_smem_floats<MagsEpilogue::kLookback, MagsEpilogue::Body>() *
+      static_cast<int>(sizeof(float));
+  dim3 grid;
+  int tiles_per_block = 0;
+  const cudaError_t err = bliss::frame_tiles_launch_shape(
+      frame_dft_mags_kernel, kSmemBytes, batch, n_frames, &grid, &tiles_per_block);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // a block walks a run of tiles, long enough to amortise its twiddle loads
-  // and to overlap staging with transforms, short enough for ~4 waves of the
-  // 2 blocks an SM holds
-  const int n_tiles = (n_frames + kFftTile - 1) / kFftTile;
-  const long long want_blocks =
-      static_cast<long long>(sms) * 2 * BLISS_FRAME_FFT_WAVES;
-  const long long all_tiles = static_cast<long long>(n_tiles) * batch;
-  int tiles_per_block =
-      static_cast<int>((all_tiles + want_blocks - 1) / want_blocks);
-  if (tiles_per_block < 1) tiles_per_block = 1;
-  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, batch);
-  frame_dft_mags_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  frame_dft_mags_kernel<<<grid, bliss::kTileThreads, kSmemBytes, stream>>>(
       x, t_len, n_frames, hop, offset, tiles_per_block, win, tw_re, tw_im, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -313,7 +227,7 @@ extern "C" int timbral_flat_launch(const float* x, int batch, long long t_len,
                                    const float* tw_im, float* out,
                                    cudaStream_t stream) {
   if (n_frames <= 0 || batch <= 0) return 0;
-  if (bad_hop(hop)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bliss::frame_tiles_bad_hop(hop)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_frames + kRowFrames - 1) / kRowFrames, batch);
   timbral_flat_kernel<<<grid, kThreads, 0, stream>>>(
       x, t_len, n_frames, hop, offset, win, tw_re, tw_im, out);

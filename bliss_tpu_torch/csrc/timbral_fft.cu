@@ -9,67 +9,96 @@
 // Frame f of song b covers x[b, f*hop - offset + n], n in [0, 512), zero
 // outside [0, T), times the periodic Hann window.
 //
-// Accuracy: the spectrum must come from an f32 radix-2 FFT. The reference's
-// f32 FFT roundings bias the flatness of quiet frames; a near-exact DFT sits
-// ~1.1e-4 from the reference value, over the 1e-4 contract, while an f32
-// radix-2 FFT lands ~2e-5 from it. So this kernel runs a plain 9-stage
-// radix-2 FFT in shared memory, never a matmul DFT.
+// Accuracy: the spectrum must come from an f32 FFT. The reference's f32 FFT
+// roundings bias the flatness of quiet frames; a near-exact DFT sits ~1.1e-4
+// from the reference value, over the 1e-4 contract, while an f32 FFT lands
+// ~2e-5 from it. Each frame's geometric mean (the log2 sum) is held within
+// 1e-4 of the plain version's (torch.fft.rfft, cuFFT on the card), and on a
+// frame with one bin near zero under a loud peak that sum follows the
+// rounding of that one bin. The 8 x 8 x 4 body of warp_rfft512_mags, nearer
+// exact arithmetic there than cuFFT, crossed that limit on one frame of a
+// 60-minute synthetic song on an H100 (1.02e-4; it sat 2.2e-5 from an f64
+// FFT of the same f32 windowed frame, cuFFT 1.24e-4), while fft_radix2_dit's
+// arithmetic stays within it on every frame measured. So the spectrum is
+// that arithmetic on a warp's schedule (warp_radix2_512_mags: the same
+// butterflies, integer-phase twiddles and stage order, the windowed samples
+// rounded to f32 first, no matmul DFT).
 //
-// Bound on the card: the signal is read once (~4 bytes per sample, shared by
-// four overlapping frames through L1/L2) and 20 bytes go out per frame; the
-// ~14k f32 operations per frame put the operation bound slightly above the
-// byte bound. Design: one 256-thread block per tile of 16 frames (one thread
-// per kept bin), the whole frame and its transform live in 4 KB of shared
-// memory, and the rolloff prefix sum is a warp-shuffle scan
-// (timbral_rows.cuh), so nothing but the 5 output floats per frame touches
-// device memory.
-#include "timbral_rows.cuh"
+// Bound on the card: operations, with bytes close behind. The signal is read
+// once (4 bytes a sample, each shared by four overlapping frames) and 20
+// bytes go out a frame, against ~14k f32 operations of a real FFT (the
+// radix-2 complex body does about twice that) and ~3k of the reductions a
+// frame. Design: the staged tile loop of frame_tiles.cuh, a frame a warp,
+// never a block-wide barrier inside a transform; the epilogue
+// reduces the magnitudes where the transform leaves them, lane q holding
+// slots q + 32 r in register r: total, weighted and log2 sum are warp sums,
+// and the rolloff prefix sum is eight 32-slot warp scans taken left to right
+// with a carry (the chunks and the order of the block-wide scan of
+// timbral_rows.cuh, so the count keeps its rounding), counted by ballot. No
+// magnitude reaches device memory: 5 floats a frame go out.
+#include "frame_tiles.cuh"
 
 namespace {
 
-constexpr int kWin = 512;
-constexpr int kLog2Win = 9;
-constexpr int kThreads = bliss::kRowThreads;
-constexpr int kFramesPerBlock = 16;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-timbral_fft_kernel(const float* __restrict__ x, long long t_len, int n_frames,
-                   int hop, int offset, const float* __restrict__ win,
-                   const float* __restrict__ tw_re,
-                   const float* __restrict__ tw_im, float* __restrict__ out) {
-  __shared__ float re[kWin];
-  __shared__ float im[kWin];
-  __shared__ bliss::RowScratch rows;
+struct TimbralEpilogue {
+  using Body = bliss::Radix2Body;
+  static constexpr int kLookback = 0;
+  float* out;  // [n_frames, 5] of this song
 
-  const int tid = threadIdx.x;
-  const float* xs = x + static_cast<long long>(blockIdx.y) * t_len;
-  float* os = out + static_cast<long long>(blockIdx.y) * n_frames * 5;
-  const int f0 = blockIdx.x * kFramesPerBlock;
-  const int f1 = min(f0 + kFramesPerBlock, n_frames);
+  __device__ __forceinline__ int lookback_frames(bool, int) const { return 0; }
 
-  for (int f = f0; f < f1; ++f) {
-    const long long start = static_cast<long long>(f) * hop - offset;
-    for (int n = tid; n < kWin; n += kThreads) {
-      const long long s = start + n;
-      const float v = (s >= 0 && s < t_len) ? xs[s] : 0.0f;
-      const int r = bliss::bit_reverse(n, kLog2Win);
-      re[r] = v * win[n];
-      im[r] = 0.0f;
+  __device__ __forceinline__ void frame(int f, int, float (&mag)[8], float nyq, int lane) {
+    // slot 255 carries the Nyquist bin, which lane 0 holds
+    const float nyquist = __shfl_sync(kFull, nyq, 0);
+    if (lane == 31) mag[7] = nyquist;
+    float total = 0.0f, weighted = 0.0f, logsum = 0.0f;
+    float cum[8];
+    float energy = 0.0f;  // the sum of the chunks before this one, then of all
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float m = mag[r];
+      total += m;
+      weighted += m * static_cast<float>(lane + 32 * r);
+      logsum += log2f(m);
+      float c = m * m;  // inclusive scan of chunk r (slots 32 r .. 32 r + 31)
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const float y = __shfl_up_sync(kFull, c, s);
+        if (lane >= s) c += y;
+      }
+      cum[r] = c + energy;
+      energy += __shfl_sync(kFull, c, 31);
     }
-    __syncthreads();
-    bliss::fft_radix2_dit(re, im, kLog2Win, tw_re, tw_im, 1);
-
-    // slot tid of the buggy layout: bin tid, except the last slot which
-    // carries the Nyquist bin
-    const int k = tid == kThreads - 1 ? kWin / 2 : tid;
-    const float mr = re[k];
-    const float mi = im[k];
-    const float mag = sqrtf(mr * mr + mi * mi);
-    // the next frame's loads end in a __syncthreads() before `rows` is
-    // written again
-    bliss::timbral_row_store(mag, rows,
-                             os + static_cast<long long>(f) * 5);
+    const float target = energy * 0.95f;
+    int below = 0;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) below += __popc(__ballot_sync(kFull, cum[r] < target));
+    total = bliss::warp_sum(total);
+    weighted = bliss::warp_sum(weighted);
+    logsum = bliss::warp_sum(logsum);
+    if (lane == 0) {
+      float* o = out + static_cast<long long>(f) * 5;
+      o[0] = total;
+      o[1] = weighted;
+      o[2] = static_cast<float>(below);
+      o[3] = logsum;
+      o[4] = energy;
+    }
   }
+
+  __device__ __forceinline__ void tile_done(int, int) {}
+};
+
+__global__ void __launch_bounds__(bliss::kTileThreads, 2)
+timbral_fft_kernel(const float* __restrict__ x, long long t_len, int n_frames,
+                   int hop, int offset, int tiles_per_block,
+                   const float* __restrict__ win, const float* __restrict__ tw_re,
+                   const float* __restrict__ tw_im, float* __restrict__ out) {
+  TimbralEpilogue ep{out + static_cast<long long>(blockIdx.y) * n_frames * 5};
+  bliss::frame_tiles(x, t_len, n_frames, hop, offset, tiles_per_block, win, tw_re,
+                     tw_im, ep);
 }
 
 }  // namespace
@@ -80,8 +109,16 @@ extern "C" int timbral_fft_launch(const float* x, int batch, long long t_len,
                                   const float* tw_im, float* out,
                                   cudaStream_t stream) {
   if (n_frames <= 0 || batch <= 0) return 0;
-  const dim3 grid((n_frames + kFramesPerBlock - 1) / kFramesPerBlock, batch);
-  timbral_fft_kernel<<<grid, kThreads, 0, stream>>>(
-      x, t_len, n_frames, hop, offset, win, tw_re, tw_im, out);
+  if (bliss::frame_tiles_bad_hop(hop)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmemBytes =
+      bliss::tile_smem_floats<TimbralEpilogue::kLookback, TimbralEpilogue::Body>() *
+      static_cast<int>(sizeof(float));
+  dim3 grid;
+  int tiles_per_block = 0;
+  const cudaError_t err = bliss::frame_tiles_launch_shape(
+      timbral_fft_kernel, kSmemBytes, batch, n_frames, &grid, &tiles_per_block);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  timbral_fft_kernel<<<grid, bliss::kTileThreads, kSmemBytes, stream>>>(
+      x, t_len, n_frames, hop, offset, tiles_per_block, win, tw_re, tw_im, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
-// The five per-frame timbral reductions, shared by the kernels that emit
-// them (timbral_fft.cu from an FFT-structured spectrum, frame_dft.cu from a
-// direct DFT). One 256-thread block holds one frame: thread `tid` owns the
-// magnitude of slot `tid` of aubio's buggy 256-bin layout (bins 0..254,
-// then the Nyquist bin in slot 255, src/aubio.rs:237-261).
+// The five per-frame timbral reductions of frame_dft.cu's direct-DFT
+// kernel (timbral_flat_kernel). One 256-thread block holds one frame: thread
+// `tid` owns the magnitude of slot `tid` of aubio's buggy 256-bin layout
+// (bins 0..254, then the Nyquist bin in slot 255, src/aubio.rs:237-261).
+// timbral_fft.cu forms the same rows from a warp's registers, with the same
+// 32-slot chunks scanned in the same order.
 #pragma once
 
 #include "fft_common.cuh"

@@ -18,6 +18,9 @@ Six kernels, each with its plain PyTorch version in this module:
   (matrix-product) DFT of the same frames with Neumaier-compensated chunk
   sums, replacing `_make_timbral_kernel`.
 
+`timbral_fft`, `specflux` and `frame_dft_mags` are three epilogues of one
+staged tile loop (csrc/frame_tiles.cuh) around a 512-point FFT a warp.
+
 A wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
 tensor; there is no other switch. On CUDA it checks device, dtype, shape
 and contiguity, allocates the output with `torch.empty`, launches on the

@@ -11,7 +11,10 @@
    and noise), 8 x 5 minutes by default, padded to `bucket_length`;
 4. holds each kernel against its plain PyTorch version on the card, at
    the shapes the analysis gives it, and times both (a `FAULT:` line names
-   a kernel that is not under its library call); `ct_stft_mags` and
+   a kernel that is not under its library call); `timbral_fft` also prints,
+   for the 8 frames where it and its plain version differ most, each one's
+   geometric-mean distance to an f64 FFT of the frame, and holds the
+   song-level flatness features of its rows at 1e-5; `ct_stft_mags` and
    `ct_frames_mags` also off the path's shapes (B = 3, frames past the end
    of the signal, ragged frame counts, N = 1, rows at a 4-byte offset, the
    radix-2 body's widths 2048 and 4096);
@@ -60,7 +63,8 @@
    `[8, 10,506,554]` and `timbral_fft` on the same halo-extended shards
    with its negative frame offset, each against its plain version (the
    first two against library calls too; the worst `timbral_fft` frame is
-   printed with its shard and RMS), the global median's counting rounds
+   printed with its shard and RMS, the 8 farthest with their distances to
+   f64, and the song's flatness features are held), the global median's counting rounds
    against a sort and timed alone beside the sharded chroma stage and the
    radix select on the same plane, and `histogram_int_plane` on the sharded
    tuning plane; drives `parallel.longsong.sharded_analyze_samples` with the
@@ -223,7 +227,7 @@ def timbral_frame_ops() -> float:
     return 512 + rfft_ops(512) + 256 * 4 + 256 * 8
 
 
-def hold_timbral_fft(x, n_frames: int, offset: int, label: str) -> float:
+def hold_timbral_fft(x, n_frames: int, offset: int, label: str, mask) -> float:
     """`timbral_fft` against its plain version on `x [B, T]` with the first
     frame at `-offset`; returns the largest absolute error of the total,
     weighted and energy columns.
@@ -234,7 +238,12 @@ def hold_timbral_fft(x, n_frames: int, offset: int, label: str) -> float:
     that sum weighs every near-silent bin, whose magnitude two different
     f32 FFTs round differently (both sit ~3e-6 from f64 on typical
     frames, more on the rare frame with a bin near zero), so its limit is
-    the 1e-4 feature contract; its max and mean are printed."""
+    the 1e-4 feature contract; its max and mean are printed, and for the 8
+    frames farthest apart, each version's distance to an f64 FFT of the same
+    frame. The song-level flatness features (mean and std, over the frames
+    `mask [S, F']` keeps of the rows viewed as S songs) of the kernel's rows
+    are held against the plain rows' at 1e-5."""
+    from bliss_tpu_torch.models.timbral import frame_descriptors_from_raw, summarize_spectral
     from bliss_tpu_torch.ops import dft_kernels as DK
 
     got = DK.timbral_fft(x, n_frames, offset=offset)
@@ -269,9 +278,35 @@ def hold_timbral_fft(x, n_frames: int, offset: int, label: str) -> float:
           f"[{start}, {start + DK.TIMBRAL_WINDOW}): frame RMS {rms:.6g} (row RMS {row_rms:.6g}), "
           f"magnitudes min {fm.min().item():.3g} median {fm.median().item():.3g} max "
           f"{fm.max().item():.3g}", flush=True)
-    if rel > 1e-5 or below > 1 or geo_max > 1e-4:
+    # which of the two f32 FFTs exact arithmetic lies nearer, on the frames
+    # where they differ most: an f64 FFT of the same f32 windowed frame
+    win = DK._constants(DK.TIMBRAL_WINDOW, str(x.device))[0]
+    worst = []
+    for idx in torch.topk(geo.flatten(), 8).indices.tolist():
+        r, fr = divmod(idx, n_frames)
+        s0 = fr * DK.TIMBRAL_HOP - offset
+        lo, hi = max(s0, 0), min(s0 + DK.TIMBRAL_WINDOW, x.shape[1])
+        frame = torch.zeros(DK.TIMBRAL_WINDOW, device=x.device)
+        if hi > lo:
+            frame[lo - s0 : hi - s0] = x[r, lo:hi]
+        m = torch.fft.rfft((frame * win).double()).abs()
+        exact = torch.log2(torch.cat([m[:255], m[256:]])).sum().item()
+        to64 = [abs(v[r, fr, 3].item() - exact) * math.log(2.0) / 256 for v in (got, want)]
+        worst.append(f"({r}, {fr}): kernel {to64[0]:.3g} plain {to64[1]:.3g}")
+    print(f"  timbral_fft {label}: the 8 frames farthest apart, geo_mean distance to f64 (row, "
+          f"frame): {'; '.join(worst)}", flush=True)
+
+    def flatness(rows):
+        c, ro, fl = frame_descriptors_from_raw(rows.reshape(mask.shape + (5,)))
+        return summarize_spectral(c, ro, fl, mask)[..., 4:6]
+
+    d_flat = (flatness(got) - flatness(want)).abs().max().item()
+    print(f"  timbral_fft {label}: flatness mean and std of the kernel's rows vs the plain rows' "
+          f"max {d_flat:.3g} (limit 1e-5)", flush=True)
+    if rel > 1e-5 or below > 1 or geo_max > 1e-4 or d_flat > 1e-5:
         fail(f"timbral_fft {label} vs plain: relative {rel:.3g} (limit 1e-5), geo_mean "
-             f"{geo_max:.3g} (limit 1e-4), below {below} (limit 1)")
+             f"{geo_max:.3g} (limit 1e-4), below {below} (limit 1), flatness features "
+             f"{d_flat:.3g} (limit 1e-5)")
     return diff[..., [0, 1, 4]].max().item()
 
 
@@ -1017,7 +1052,9 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     )
     # timbral_fft over the halo-extended shards: the first frame of a shard
     # starts HALO - 384 samples into it
-    hold_timbral_fft(ext, fps_t, (LS.T_WIN - LS.T_HOP) - LS.HALO, f"{shards} shards")
+    n_valid_t = int(n_frames_strided(n, LS.T_WIN, LS.T_HOP))
+    hold_timbral_fft(ext, fps_t, (LS.T_WIN - LS.T_HOP) - LS.HALO, f"{shards} shards",
+                     torch.arange(shards * fps_t, device=dev).unsqueeze(0) < n_valid_t)
     t_ms = time_ms(lambda: DK.timbral_fft(ext, fps_t, offset=(LS.T_WIN - LS.T_HOP) - LS.HALO), 10)
     t_bound = bound(ext.numel() * 4 + shards * fps_t * 5 * 4, shards * fps_t * timbral_frame_ops())
     print(f"  timbral_fft {shards} shards: {t_ms:.4f} ms (bound {t_bound[0]:.4f} by {t_bound[1]})",
@@ -1230,7 +1267,10 @@ def main() -> None:
 
     # timbral: [B, F, 5]
     nf = int(n_frames_strided(tpad, 512, 128))
-    timbral_err = hold_timbral_fft(x, nf, DK.TIMBRAL_OFFSET, f"{b} x {args.seconds / 60:g}-min")
+    timbral_err = hold_timbral_fft(
+        x, nf, DK.TIMBRAL_OFFSET, f"{b} x {args.seconds / 60:g}-min",
+        torch.arange(nf, device=dev) < n_frames_strided(lens, 512, 128).unsqueeze(-1),
+    )
     record(
         "timbral_fft", "bliss_tpu_torch/csrc/timbral_fft.cu",
         "bliss_tpu/ops/pallas_dft.py:195", timbral_err,

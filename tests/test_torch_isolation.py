@@ -4,6 +4,7 @@ card to the CPU on their own, and every kernel has its CUDA source."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -140,18 +141,70 @@ def _kernel_body(text: str, name: str) -> str:
 
 def test_frame_dft_mags_kernel_is_an_fft():
     """The magnitudes kernel transforms by the warp FFT of fft_common.cuh
-    and forms no direct DFT product; its note says so. The flat timbral
-    kernel keeps the direct product."""
+    (through the staged tile loop of frame_tiles.cuh) and forms no direct
+    DFT product; its note says so. The flat timbral kernel keeps the direct
+    product."""
     csrc = REPO / "bliss_tpu_torch" / "csrc"
     text = (csrc / "frame_dft.cu").read_text()
     body = _kernel_body(text, "frame_dft_mags_kernel")
-    assert "warp_rfft512_mags(" in body and "accumulate(" not in body
+    assert "bliss::frame_tiles(" in body and "accumulate(" not in body
+    assert "using Body = bliss::Rfft512Body;" in text
+    assert "warp_rfft512_mags(" in _device_body((csrc / "frame_tiles.cuh").read_text(), "mags")
     assert "accumulate(" in _kernel_body(text, "timbral_flat_kernel")
     note = text[: text.index("#include")]
     assert "warp_rfft512_mags" in note and "a frame per warp" in note
     assert "warp_rfft512_mags" in (csrc / "fft_common.cuh").read_text()
     for banned in ("cufft", "cub/"):
         assert banned not in text.lower()
+
+
+def _device_body(text: str, name: str) -> str:
+    """The text of device function `name`, from its name to the closing
+    brace at the start of a line."""
+    start = text.index(f" {name}(")
+    return text[start : text.index("\n}", start)]
+
+
+@pytest.mark.parametrize(
+    "source,kernel,epilogue,body",
+    [
+        ("frame_dft.cu", "frame_dft_mags_kernel", "MagsEpilogue", "Rfft512Body"),
+        ("timbral_fft.cu", "timbral_fft_kernel", "TimbralEpilogue", "Radix2Body"),
+        ("specflux.cu", "specflux_kernel", "FluxEpilogue", "Rfft512Body"),
+    ],
+)
+def test_strided_frame_kernels_share_the_warp_fft_tile_loop(source, kernel, epilogue, body):
+    """The three kernels over 512-sample strided frames are thin
+    instantiations of one staged tile loop (frame_tiles.cuh: cp.async tiles,
+    double buffered, a frame a warp), each with its own epilogue and a warp
+    body: `warp_rfft512_mags` (8 x 8 x 4) for #7 and #2,
+    `warp_radix2_512_mags` (fft_radix2_dit's arithmetic on a warp) for #1;
+    both round the windowed samples before the first butterfly. None runs the block-wide radix-2 body, which stays
+    for `ct_mags_kernel` alone, and no block barrier sits inside a warp
+    transform. Each note keeps its Pallas kernel and its bound."""
+    csrc = REPO / "bliss_tpu_torch" / "csrc"
+    text = (csrc / source).read_text()
+    assert "bliss::frame_tiles(" in _kernel_body(text, kernel)
+    struct = text[text.index(f"struct {epilogue} {{") :]
+    assert f"using Body = bliss::{body};" in struct[: struct.index("};")]
+    common = (csrc / "fft_common.cuh").read_text()
+    for fn in ("warp_radix2_512_mags", "warp_rfft512_mags"):
+        assert "__fmul_rn" in _device_body(common, fn), fn
+    assert "fft_radix2_dit(" not in text and "bit_reverse" not in text
+    assert '#include "frame_tiles.cuh"' in text
+    tiles = (csrc / "frame_tiles.cuh").read_text()
+    loop = _device_body(tiles, "frame_tiles")
+    assert "body.mags(" in loop and "stage_tile_async<" in loop
+    assert "cp_async_wait<1>()" in loop and loop.count("__syncthreads()") == 2
+    assert "cp_async<4>(" in _device_body(tiles, "stage_tile_async")
+    assert "warp_rfft512_mags(" in tiles and "warp_radix2_512_mags(" in tiles
+    for fn in ("warp_fft256", "warp_rfft512_mags", "warp_radix2_512_mags"):
+        assert "__syncthreads" not in _device_body(common, fn), fn
+    assert "fft_radix2_dit(" in _kernel_body((csrc / "ct_stft.cu").read_text(), "ct_mags_kernel")
+    note = " ".join(line.strip("/ ") for line in text[: text.index("#include")].splitlines())
+    assert "Bound on the card" in note and "frame_tiles.cuh" in note
+    assert "Replaces the TPU kernel" in note or "replaces the TPU kernel" in note
+    assert re.search(r"a frame (per|a) warp", note)
 
 
 def test_ct_stft_8192_body_is_a_block_fft():

@@ -1,6 +1,8 @@
-"""The two kernels designed again for the card, on the CPU: the key entry
-of the byte-radix select (`bisect8_keys`, which forms each level's plane
-inside its counting pass) and `frame_dft_mags` (an FFT body).
+"""The kernels designed again for the card, on the CPU: the key entry of
+the byte-radix select (`bisect8_keys`, which forms each level's plane
+inside its counting pass) and the three kernels over 512-sample strided
+frames on the warp FFT body (`frame_dft_mags`, `timbral_fft`, `specflux`;
+their arithmetic is emulated in tests/test_torch_warp_fft.py).
 
 On the CPU the wrappers run their plain PyTorch versions; these are held
 against the composition they replace (`radix_plane` + `bisect8_plain`, level
@@ -285,3 +287,60 @@ def test_cuda_frame_fft_kernel_matches_plain(cuda, batch, t, hop, offset):
     got = TD.frame_dft_mags(sig, 512, hop, offset, n_frames)
     want = TD.frame_dft_mags_plain(sig, hop, offset, n_frames)
     assert ((got - want).abs().amax(-1) / want.amax(-1).clamp(min=1e-30)).max() < 1e-5
+
+
+def _tiles_per_block(n_frames: int, batch: int) -> int:
+    """csrc/frame_tiles.cuh:frame_tiles_launch_shape's run of 32-frame tiles
+    a block (about four waves of two blocks an SM)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_tiles = -(-n_frames // 32)
+    return max(1, -(-(n_tiles * batch) // (sms * 2 * 4)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,t,offset", [(3, 200_001, 384), (3, 4_000_003, 384), (2, 300_001, -8349)])
+def test_cuda_timbral_fft_kernel_matches_plain(cuda, batch, t, offset):
+    """#1 on the warp FFT against its plain version at chip_smoke.py's
+    limits (total, weighted, energy relative 1e-5, below +-1, geometric mean
+    1e-4 a frame): B = 3, odd buffer lengths, frames past the end, runs of
+    several tiles a block whose last tile ends inside the run, a negative
+    offset (a halo-extended shard); one launch a call."""
+    rng = np.random.default_rng(33)
+    sig = torch.as_tensor((rng.normal(size=(batch, t)) * 0.1).astype(np.float32), device=cuda)
+    n_frames = (t + offset) // 128 + 3
+    _build.reset_launches()
+    got = TD.timbral_fft(sig, n_frames, offset=offset)
+    assert _build.LAUNCHES == {"timbral_fft": 1}
+    want = TD.timbral_fft_plain(sig, n_frames, offset=offset)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)) and torch.equal(got[~fin], want[~fin])
+    diff = torch.where(fin, (got - want).abs(), 0.0)
+    scale = torch.where(fin, want.abs(), 0.0).clamp(min=1e-30)
+    for c in (0, 1, 4):
+        assert (diff[..., c] / scale[..., c]).max() < 1e-5, c
+    assert diff[..., 2].max() <= 1
+    assert (diff[..., 3] * np.log(2) / 256).max() < 1e-4
+    assert (got[:, -1, 3] == -np.inf).all()  # the last frame lies past the end: silence
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,t", [(3, 200_003), (3, 4_000_003)])
+def test_cuda_specflux_kernel_matches_plain(cuda, batch, t):
+    """#2 on the warp FFT against its plain version, 1e-5 of each song's
+    largest onset: the lookback across warps, across tiles (warp 0's carry)
+    and across block runs (one extra transform a run), with the first frame
+    of every warp, tile and block run held on its own; one launch a call."""
+    rng = np.random.default_rng(34)
+    sig = torch.as_tensor((rng.normal(size=(batch, t)) * 0.1).astype(np.float32), device=cuda)
+    n_frames = t // 256 + 2
+    _build.reset_launches()
+    got = TD.specflux(sig, n_frames)
+    assert _build.LAUNCHES == {"specflux": 1}
+    want = TD.specflux_plain(sig, n_frames)
+    err = (got - want).abs() / want.abs().amax(1, keepdim=True)
+    assert err.max() < 1e-5
+    run = 32 * _tiles_per_block(n_frames, batch)
+    for step in (4, 32, run):
+        assert err[:, ::step].max() < 1e-5, step
+    if t > 1_000_000:
+        assert run > 32  # block runs of several tiles were held

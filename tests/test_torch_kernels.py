@@ -246,19 +246,20 @@ def _chroma_frames(n_frames=40):
 
 def test_kernel_fft_arithmetic_emulated():
     """The kernels' FFT structure, emulated in numpy f32 on frames of a
-    synthetic song: the 512-point complex FFT of csrc/timbral_fft.cu and
-    csrc/specflux.cu, the block-wide radix-2 body csrc/ct_stft.cu keeps for
-    widths below 8192 (2048 here: a complex FFT of half size + even/odd
-    split), and its 8192-point body (16 x 16 x 16), each within 1e-6 of the
-    frame's max of an f64 FFT; and the geometric mean of the 512-point
-    magnitudes (the flatness ingredient) no farther from f64 than torch's
-    f32 FFT, within 2x (the same f32 noise class)."""
+    synthetic song: the block-wide radix-2 body of csrc/fft_common.cuh
+    (fft_radix2_dit) as a 512-point complex FFT of real frames, and as
+    csrc/ct_stft.cu runs it for widths below 8192 (2048 here: a complex FFT
+    of half size + even/odd split), and the 8192-point body (16 x 16 x 16),
+    each within 1e-6 of the frame's max of an f64 FFT; and the geometric
+    mean of the 512-point magnitudes (the flatness ingredient) no farther
+    from f64 than torch's f32 FFT, within 2x (the same f32 noise class).
+    The warp body of the 512-point kernels: tests/test_torch_warp_fft.py."""
     from bliss_tpu_torch.tables import twiddles
     from bliss_tpu_torch.ops.windows import _hann_np
     from chip_smoke import synth_song
 
     x = synth_song(np.random.default_rng(0), 22050 * 20)
-    # 512: the timbral/specflux transform
+    # 512: the radix-2 body on 512 complex points
     frames = np.lib.stride_tricks.sliding_window_view(x, 512)[::128][:2000]
     fr = (frames * _hann_np(512)).astype(np.float32)
     rev = _bit_reverse(9)
