@@ -6,11 +6,13 @@ Analysis of Classical Music").
 The 8192/2205 STFT runs in one kernel launch for the whole batch
 (`ops/spectral.stft`). The tuning estimate picks its route per bucket as
 the JAX package does (`chroma_features`): at f32 the fused estimator
-(`bisect16_pair` + `histogram_threshold_plane`) while its per-song plane
-fits the reference's budget, else the unfused one (the byte-radix median
-with `bisect8_keys`, then `histogram_int_plane`); all four are counting
-kernels of `ops/tuning_kernels.py`. At f64 (the CPU golden path) tuning
-takes the unfused route with the sort-based median of the reference.
+(`tuning_peaks` lists each song's peaks in one pass over the spectrum,
+`tuning_select` selects and counts them, one block a song) while the
+reference's per-song plane fits its budget, else the unfused one (the
+byte-radix median with `bisect8_keys`, then `histogram_int_plane`); all
+are kernels of `ops/tuning_kernels.py`. At f64 (the CPU golden path)
+tuning takes the unfused route with the sort-based median of the
+reference.
 
 Float discipline: FFT magnitudes are f32; everything after is carried in
 `dtype` (f64 on the CPU for golden parity, f32 on the card).
@@ -33,9 +35,11 @@ from ..ops.reductions import (
 )
 from ..ops.spectral import stft
 from ..ops.tuning_kernels import (
-    bisect16_pair,
     histogram_int_plane,
-    histogram_threshold_plane,
+    pip_stencil,
+    tuning_bins,
+    tuning_peaks,
+    tuning_select,
 )
 from ..ops.windows import n_frames_stft
 from ..tables import template_product_indices
@@ -103,30 +107,19 @@ def _pitch_band(n_fft: int, sample_rate: int = SAMPLE_RATE):
     return beginning, end
 
 
+def peak_band(n_fft: int):
+    """pip_track's stencil rows for `n_fft`: `(first, rows, hz_per_bin)`,
+    row `i` being spectrum bin `first + 1 + i` (the band's interior)."""
+    beginning, end = _pitch_band(n_fft)
+    return beginning, end - beginning - 3, SAMPLE_RATE / n_fft
+
+
 def _pip_stencil(spec_fm: torch.Tensor, n_fft: int):
     """The pip_track stencil over a FRAME-MAJOR spectrum `[B, F, bins]`:
-    `(pitches, mags, is_peak)`, each `[B, F, rows]`, where row `i` is
-    spectrum bin `beginning + 1 + i`. Elementwise throughout, so the three
-    are contiguous when `spec_fm` is: `ops.spectral.stft` returns the
-    `[B, bins, F]` view of such storage, and `spec_fm` is that view
-    transposed back."""
-    beginning, end = _pitch_band(n_fft)
-    dtype = spec_fm.dtype
-    ref_value = 0.1 * spec_fm.amax(-1, keepdim=True)  # per-frame threshold
-    before = spec_fm[..., beginning : end - 3]
-    elem = spec_fm[..., beginning + 1 : end - 2]
-    after = spec_fm[..., beginning + 2 : end - 1]
-    is_peak = (elem > ref_value) & (after <= elem) & (before < elem)
-    avg = 0.5 * (after - before)
-    shift_den = 2.0 * elem - after - before
-    shift_den = torch.where(
-        torch.abs(shift_den) < torch.finfo(dtype).tiny, shift_den + 1.0, shift_den
-    )
-    shift = avg / shift_den
-    rows = torch.arange(elem.shape[-1], dtype=dtype, device=spec_fm.device) + (beginning + 1)
-    pitches = (rows + shift) * (SAMPLE_RATE / n_fft)
-    mags = elem + 0.5 * avg * shift
-    return pitches, mags, is_peak
+    `(pitches, mags, is_peak)`, each `[B, F, rows]`, over `peak_band`'s
+    rows (`ops/tuning_kernels.py:pip_stencil`, contiguous when `spec_fm`
+    is, as `stft` makes it)."""
+    return pip_stencil(spec_fm, *peak_band(n_fft))
 
 
 def pip_track(spectrum: torch.Tensor, frame_mask: torch.Tensor, n_fft: int):
@@ -136,19 +129,6 @@ def pip_track(spectrum: torch.Tensor, frame_mask: torch.Tensor, n_fft: int):
     pitches, mags, is_peak = _pip_stencil(spectrum.transpose(1, 2), n_fft)
     mask = is_peak & frame_mask.unsqueeze(-1)
     return pitches.transpose(1, 2), mags.transpose(1, 2), mask.transpose(1, 2)
-
-
-def _tuning_bins(pitches, resolution: float, bins_per_octave: int):
-    """Histogram bin in [0, 1/resolution) of each frequency's deviation from
-    the equal-tempered grid (src/chroma.rs:334-359)."""
-    dtype = pitches.dtype
-    n_bins = int(round(1.0 / resolution))
-    octs = hz_to_octs(torch.clamp(pitches, min=torch.finfo(dtype).tiny), 0.0, bins_per_octave)
-    v = torch.remainder(bins_per_octave * octs, 1.0)
-    v = torch.where(v >= 0.5, v - 1.0, v)
-    idxf = (v - (-0.5)) / resolution
-    # Rust `as usize` truncates toward zero and saturates negatives at 0
-    return torch.clamp(idxf.to(torch.int32), 0, n_bins - 1)
 
 
 def _tuning_from_counts(counts: torch.Tensor, any_sel: torch.Tensor, resolution: float, dtype):
@@ -178,7 +158,7 @@ def tuning_bin_plane(frequencies, mask, resolution: float = 0.01, bins_per_octav
     frequency's tuning bin, the sentinel `n_bins` elsewhere."""
     n_bins = int(round(1.0 / resolution))
     sel = mask & (frequencies > 0.0)
-    idx = _tuning_bins(frequencies, resolution, bins_per_octave)
+    idx = tuning_bins(frequencies, resolution, bins_per_octave)
     return torch.where(sel, idx, n_bins).to(torch.int32).contiguous()
 
 
@@ -217,8 +197,7 @@ def _fused_plane_bytes(n_frames: int, n_fft: int) -> int:
     """Tile-padded i16 plane of the fused estimator for one song of
     `n_frames` frames: rows padded to 32, columns to 128, 2 bytes each
     (bliss_tpu/models/chroma.py:_fused_plane_bytes)."""
-    beginning, end = _pitch_band(n_fft)
-    rows = end - beginning - 3
+    rows = peak_band(n_fft)[1]
     return (-(-rows // 32) * 32) * (-(-n_frames // 128) * 128) * 2
 
 
@@ -238,12 +217,15 @@ def tuning_planes(
     resolution: float = 0.01,
     bins_per_octave: int = 12,
 ) -> dict:
-    """The fused estimator's single stencil sweep over an f32 spectrum
+    """The TPU route's single stencil sweep over an f32 spectrum
     `[B, bins, F]`: three contiguous frame-major `[B, F, rows]` planes,
     the i32 order-isomorphic keys of the peak magnitudes (`skey`, INT32_MAX
     where excluded), the int8 tuning bin (`idx8`, n_bins + 1 where
     excluded) and the top 16 key bits (`plane_hi`), plus the midpoint
-    median's floor/ceil ranks `ks [B, 2]`."""
+    median's floor/ceil ranks `ks [B, 2]`. With `level2_plane`,
+    `threshold_key` and the plain TPU contracts of `ops/tuning_kernels.py`
+    it is the plain composition `tuning_peaks` and `tuning_select` are held
+    against; no path of the port runs it."""
     n_bins = int(round(1.0 / resolution))
     spec_fm = spectrum.transpose(1, 2)  # frame-major: the kernel's storage
     pitches, mags, is_peak = _pip_stencil(spec_fm, n_fft)
@@ -251,7 +233,7 @@ def tuning_planes(
 
     int_max = torch.iinfo(torch.int32).max  # the key of an excluded element
     skey = torch.where(pos, _float_sort_key(mags), int_max).contiguous()
-    idx = _tuning_bins(pitches, resolution, bins_per_octave)
+    idx = tuning_bins(pitches, resolution, bins_per_octave)
     idx8 = torch.where(pos, idx, n_bins + 1).to(torch.int8).contiguous()
     n = pos.flatten(1).sum(1).to(torch.int32)
     # midpoint ranks, as in masked_quantile_midpoint
@@ -301,21 +283,22 @@ def _estimate_tuning_fused(
     resolution: float = 0.01,
     bins_per_octave: int = 12,
 ):
-    """Tuning offset `[B]` of an f32 spectrum `[B, bins, F]` through the two
-    counting kernels (bliss_tpu/models/chroma.py:_estimate_tuning_fused):
-    the same estimate -> threshold -> histogram semantics and the same
-    integer counts as `estimate_tuning`, bit for bit. `bisect16_pair`
-    selects the midpoint median's floor/ceil ranks 16 bits at a time;
-    `histogram_threshold_plane` counts the tuning bins of the peaks at or
-    above that median, in key space.
+    """Tuning offset `[B]` of an f32 spectrum `[B, bins, F]`
+    (bliss_tpu/models/chroma.py:_estimate_tuning_fused): the same estimate
+    -> threshold -> histogram semantics and the same integer counts as
+    `estimate_tuning`, bit for bit. `tuning_peaks` lists each song's peaks
+    (sort key, tuning bin) in one pass over the frame-major storage behind
+    `spectrum` (on the card it must be that storage, as `stft` makes it);
+    `tuning_select` selects the midpoint median's floor/ceil ranks in key
+    space and counts the tuning bins of the peaks at or above it. The TPU
+    route's planes (`tuning_planes`, `level2_plane`, `threshold_key`) stay
+    as the plain composition the kernels are held against.
     """
     n_bins = int(round(1.0 / resolution))
-    p = tuning_planes(spectrum, frame_mask, n_fft, resolution, bins_per_octave)
-    o1 = bisect16_pair(p["plane_hi"], p["ks"])
-    plane_lo, rem, min_c = level2_plane(p["skey"], p["ks"], o1)
-    o2 = bisect16_pair(plane_lo, rem)
-    tk = threshold_key(o1, o2, min_c, spectrum.dtype)
-    counts = histogram_threshold_plane(p["idx8"], p["skey"], tk, n_bins)
+    keys, bins, n = tuning_peaks(
+        spectrum.transpose(1, 2), frame_mask, *peak_band(n_fft), resolution, bins_per_octave
+    )
+    counts = tuning_select(keys, bins, n, n_bins)["counts"]
     return _tuning_from_counts(counts, counts.sum(1) > 0, resolution, spectrum.dtype)
 
 

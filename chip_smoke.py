@@ -17,7 +17,12 @@
    song-level flatness features of its rows at 1e-5; `ct_stft_mags` and
    `ct_frames_mags` also off the path's shapes (B = 3, frames past the end
    of the signal, ragged frame counts, N = 1, rows at a 4-byte offset, the
-   radix-2 body's widths 2048 and 4096);
+   radix-2 body's widths 2048 and 4096); the fused tuning route's
+   `tuning_peaks` and `tuning_select` are held bit for bit against the
+   plane composition of the TPU contracts they replace (each song's sorted
+   (key, bin) list and `n` against the planes, `o1`, `o2`, `min_c`, `tk`,
+   the counts and the tuning against `bisect16_pair` twice, `level2_plane`,
+   `threshold_key` and `histogram_threshold_plane`);
 5. drives `analyze_batch` (V2, then V1) on the card with the launch
    counts reset just before, fails if any kernel did not run, and times
    each descriptor stage alone and both tuning routes on the batch's
@@ -111,7 +116,7 @@ PIANO_V2 = [
 
 #: The kernels of the fused tuning route (buckets up to 8,388,608 samples)
 #: and of the unfused one (longer buckets).
-FUSED_ROUTE = ("bisect16_pair", "histogram_threshold_plane")
+FUSED_ROUTE = ("tuning_peaks", "tuning_select")
 UNFUSED_ROUTE = ("bisect8_keys", "histogram_int_plane")
 
 #: Fixtures whose true spectra sit below the f32 DFT noise floor (pure
@@ -385,6 +390,81 @@ def profile_batch(batch, lengths) -> None:
           f"({100 * busy / wall:.1f}%), {sum(r[1] for r in rows)} device ops", flush=True)
     for dt, count, key in sorted(rows, reverse=True)[:15]:
         print(f"  {dt / 1e3:9.3f} ms {count:7d}x {key[:90]}")
+
+
+def hold_fused_tuning(record, spectrum, frame_mask, label: str) -> None:
+    """The fused tuning route's two kernels on the spectra `[B, bins, F]`
+    (the frame-major storage's view) against the plane composition of the
+    TPU contracts they replace, bit for bit: `n` and each song's sorted
+    (key, bin) list against the planes' `skey` and `idx8` where `idx8 < 100`;
+    `o1`, `o2`, `min_c`, `tk` and the counts against `bisect16_pair` twice,
+    `level2_plane`, `threshold_key` and `histogram_threshold_plane`; the
+    tuning of both. Records both kernels with their plain versions' times
+    and their bounds by bytes: the spectrum's valid frames once, the list
+    and the outputs."""
+    from bliss_tpu_torch.models import chroma as CH
+    from bliss_tpu_torch.ops import tuning_kernels as TK
+
+    b = spectrum.shape[0]
+    spec_fm = spectrum.transpose(1, 2)
+    band = CH.peak_band(8192)
+    keys, bins, n = TK.tuning_peaks(spec_fm, frame_mask, *band)
+    sel = TK.tuning_select(keys, bins, n)
+    planes = CH.tuning_planes(spectrum, frame_mask, 8192)
+    o1 = TK.bisect16_pair_plain(planes["plane_hi"], planes["ks"])
+    plane_lo, rem, min_c = CH.level2_plane(planes["skey"], planes["ks"], o1)
+    o2 = TK.bisect16_pair_plain(plane_lo, rem)
+    tk = CH.threshold_key(o1, o2, min_c, torch.float32)
+    counts = TK.histogram_threshold_plane_plain(planes["idx8"], planes["skey"], tk, 100)
+    torch.cuda.synchronize()
+    valid = planes["idx8"].reshape(b, -1) < 100
+    skey = planes["skey"].reshape(b, -1)
+    idx8 = planes["idx8"].reshape(b, -1)
+    if not torch.equal(n, valid.sum(1).to(torch.int32)):
+        fail(f"tuning_peaks {label}: n {n.tolist()} != the planes' {valid.sum(1).tolist()}")
+    for s in range(b):
+        m = int(n[s])
+        got_l = torch.sort(keys[s, :m].to(torch.int64) * 256 + bins[s, :m]).values
+        want_l = torch.sort(skey[s][valid[s]].to(torch.int64) * 256 + idx8[s][valid[s]]).values
+        if not torch.equal(got_l, want_l):
+            fail(f"tuning_peaks {label}: song {s}'s (key, bin) list differs from the planes'")
+    want = {"counts": counts, "o1": o1, "o2": o2, "min_c": min_c.to(torch.int32), "tk": tk}
+    for k, v in want.items():
+        if not torch.equal(sel[k], v):
+            fail(f"tuning_select {label}: {k} {sel[k].tolist()} != composition {v.tolist()}")
+    tuning = CH._tuning_from_counts(sel["counts"], sel["counts"].sum(1) > 0, 0.01, torch.float32)
+    tuning_c = CH._tuning_from_counts(counts, counts.sum(1) > 0, 0.01, torch.float32)
+    fused = CH._estimate_tuning_fused(spectrum, frame_mask, 8192)
+    if not (torch.equal(tuning, tuning_c) and torch.equal(fused, tuning_c)):
+        fail(f"fused tuning {label}: {fused.tolist()} != composition {tuning_c.tolist()}")
+    n_peaks = int(n.sum())
+    n_frames = int(frame_mask.sum())
+    print(f"  tuning {label}: {n_peaks} peaks ({n.tolist()}) in {n_frames} valid frames; lists, "
+          f"n, o1, o2, min_c, tk, counts and tuning {tuning.tolist()} equal to the plane "
+          f"composition, bit for bit", flush=True)
+    rows = planes["skey"].shape[2]
+    del planes, o1, o2, plane_lo, rem, min_c, tk, counts, valid, skey, idx8, want
+    torch.cuda.empty_cache()
+    # bytes: the valid frames of the spectrum and the frame mask once, 5 bytes
+    # a peak and the counters out; then the list in, ~450 bytes a song out
+    record(
+        "tuning_peaks", "bliss_tpu_torch/csrc/tuning.cu",
+        "bliss_tpu/ops/pallas_select.py:129", 0.0,
+        time_ms(lambda: TK.tuning_peaks(spec_fm, frame_mask, *band), 20),
+        time_ms(lambda: TK.tuning_peaks_plain(spec_fm, frame_mask, *band), 3),
+        n_frames * spectrum.shape[1] * 4 + frame_mask.numel() + n_peaks * 5 + b * 4,
+        n_frames * (spectrum.shape[1] + 3 * rows) + 40 * n_peaks, None,
+    )
+    record(
+        "tuning_select", "bliss_tpu_torch/csrc/tuning.cu",
+        "bliss_tpu/ops/pallas_hist.py:93", 0.0,
+        time_ms(lambda: TK.tuning_select(keys, bins, n), 20),
+        time_ms(lambda: TK.tuning_select_plain(keys, bins, n), 3),
+        n_peaks * 5 + b * 4 + b * (100 + 4 + 4 + 2) * 4, 5 * n_peaks, None,
+    )
+    whole = bound(n_frames * spectrum.shape[1] * 4, 0)[0]
+    print(f"  tuning {label}: the whole spectrum's valid frames once {whole:.4f} ms by bytes "
+          f"({spectrum.numel() * 4 / 1e6:.1f} MB with the padding frames)", flush=True)
 
 
 def hold_tuning_routes(spectrum, frame_mask, label: str) -> None:
@@ -1208,7 +1288,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
 
-    from bliss_tpu_torch.models import chroma as CH
     from bliss_tpu_torch.models.analyzer import (
         analyze_batch,
         analyze_samples,
@@ -1216,7 +1295,6 @@ def main() -> None:
     )
     from bliss_tpu_torch.ops import _build
     from bliss_tpu_torch.ops import dft_kernels as DK
-    from bliss_tpu_torch.ops import tuning_kernels as TK
     from bliss_tpu_torch.ops.spectral import stft
     from bliss_tpu_torch.ops.windows import (
         n_frames_stft,
@@ -1331,40 +1409,12 @@ def main() -> None:
         print("  FAULT: ct_stft at the main path's shape is not under torch.stft + abs", flush=True)
     hold_ct_edge_cases(dev)
 
-    # tuning planes of this batch's spectrum, as the chroma stage builds them
+    # the fused tuning route at this batch's spectrum, against the plane
+    # composition of the TPU contracts it replaces
     frame_mask = torch.arange(nfc, device=dev) < n_frames_stft(lens, 2205).unsqueeze(-1)
-    planes = CH.tuning_planes(got, frame_mask, 8192)
-    del got, want, err, padded
-    o1 = TK.bisect16_pair(planes["plane_hi"], planes["ks"])
-    o1p = TK.bisect16_pair_plain(planes["plane_hi"], planes["ks"])
-    plane_lo, rem, min_c = CH.level2_plane(planes["skey"], planes["ks"], o1)
-    o2 = TK.bisect16_pair(plane_lo, rem)
-    o2p = TK.bisect16_pair_plain(plane_lo, rem)
-    if not (torch.equal(o1, o1p) and torch.equal(o2, o2p)):
-        fail(f"bisect16_pair != plain: {o1.tolist()} {o1p.tolist()} {o2.tolist()} {o2p.tolist()}")
-    n_el = planes["plane_hi"].numel()
-    record(
-        "bisect16_pair", "bliss_tpu_torch/csrc/tuning.cu",
-        "bliss_tpu/ops/pallas_select.py:129", 0.0,
-        time_ms(lambda: TK.bisect16_pair(planes["plane_hi"], planes["ks"]), 20),
-        time_ms(lambda: TK.bisect16_pair_plain(planes["plane_hi"], planes["ks"]), 3),
-        n_el * 2 + b * 6 * 4, n_el, None,
-    )
-    tk = CH.threshold_key(o1, o2, min_c, torch.float32)
-    hist = TK.histogram_threshold_plane(planes["idx8"], planes["skey"], tk, 100)
-    histp = TK.histogram_threshold_plane_plain(planes["idx8"], planes["skey"], tk, 100)
-    if not torch.equal(hist, histp):
-        fail("histogram_threshold_plane != plain")
-    n_valid = int((planes["idx8"] < 100).sum().item())
-    record(
-        "histogram_threshold_plane", "bliss_tpu_torch/csrc/tuning.cu",
-        "bliss_tpu/ops/pallas_hist.py:93", 0.0,
-        time_ms(lambda: TK.histogram_threshold_plane(planes["idx8"], planes["skey"], tk, 100), 20),
-        time_ms(lambda: TK.histogram_threshold_plane_plain(planes["idx8"], planes["skey"], tk, 100), 3),
-        n_el + n_valid * 4 + b * 4 + b * 100 * 4, n_el + 2 * n_valid, None,
-    )
-    print(f"  tuning: {n_valid} peaks in {n_el} plane elements, counts exact")
-    del planes, plane_lo, o1, o1p, o2, o2p, hist, histp
+    del want, err, padded
+    hold_fused_tuning(record, got, frame_mask, f"{b} x {args.seconds / 60:g}-min")
+    del got
     torch.cuda.empty_cache()
 
     # ---- the main path ---------------------------------------------------

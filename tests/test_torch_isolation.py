@@ -124,6 +124,10 @@ def test_cuda_path_is_f32_only():
         ("frame_dft.cu", "Bound on the card, frame_dft_mags: bytes"),
         ("frame_dft.cu", "Bound on the card, timbral_flat: operations"),
         ("tuning.cu", "bisect8_keys"),
+        ("tuning.cu", "pallas_select.py:129 _make_bisect16_pair_kernel"),
+        ("tuning.cu", "pallas_hist.py:93 _make_threshold_kernel"),
+        ("tuning.cu", "tuning_peaks_launch"),
+        ("tuning.cu", "tuning_select_launch"),
     ],
 )
 def test_kernel_sources_name_what_they_replace(source, replaces):
@@ -238,6 +242,22 @@ def test_radix_counting_pass_is_one_template_with_two_loaders():
     for name in ("struct PlaneLoader", "struct KeyLoader", "count8_kernel<PlaneLoader>",
                  "count8_kernel<KeyLoader>", "select8_pair_kernel", 'extern "C" int bisect8_keys_launch'):
         assert name in text, name
+    assert "cub/" not in text and "thrust" not in text
+
+
+def test_fused_tuning_route_is_the_peak_list_and_select():
+    """#4 and #5 are `tuning_peaks` + `tuning_select`: both C entries, the
+    note's bound by the spectrum's bytes, none of the plane kernels they
+    replaced, and no library of finished kernels."""
+    text = (REPO / "bliss_tpu_torch" / "csrc" / "tuning.cu").read_text()
+    for name in ('extern "C" int tuning_peaks_launch', 'extern "C" int tuning_select_launch',
+                 "tuning_peaks_kernel", "tuning_select_kernel"):
+        assert name in text, name
+    note = text[: text.index("#include")]
+    assert "the spectrum once" in note
+    for gone in ("hist16_kernel", "select16_pair_kernel", "hist_threshold_kernel",
+                 "bisect16_pair_launch", "hist_threshold_launch"):
+        assert gone not in text, gone
     assert "cub/" not in text and "thrust" not in text
 
 

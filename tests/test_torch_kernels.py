@@ -344,9 +344,10 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         TD.timbral_fft(torch.empty((1, 4096), device="meta"), 10)
     with pytest.raises(ValueError):
-        TT.bisect16_pair(
-            torch.empty((1, 8, 8), dtype=torch.int16, device="meta"),
-            torch.empty((1, 2), dtype=torch.int32, device="meta"),
+        TT.tuning_peaks(
+            torch.empty((1, 8, 4097), device="meta"),
+            torch.empty((1, 8), dtype=torch.bool, device="meta"),
+            *TC.peak_band(8192),
         )
 
 
@@ -372,7 +373,7 @@ def test_bisect16_pair_matches_pallas_interpret(shape, density, spread):
     for ks in [(0, 0), ((n - 1) // 2, n // 2), (max(n - 1, 0), max(n - 1, 0)), (n + 3, n + 5)]:
         ks = np.asarray([ks], np.int32)
         want = np.asarray(j_bisect(jnp.asarray(plane), jnp.asarray(ks), interpret=True))
-        got = TT.bisect16_pair(_t(plane)[None], _t(ks)).numpy()
+        got = TT.bisect16_pair_plain(_t(plane)[None], _t(ks)).numpy()
         np.testing.assert_array_equal(got, want)
 
 
@@ -384,7 +385,7 @@ def test_histogram_threshold_matches_pallas_interpret(seed):
     skey = rng.integers(-(2**31), 2**31 - 1, size=shape, dtype=np.int64).astype(np.int32)
     tk = np.int32(rng.integers(-(2**30), 2**30))
     want = np.asarray(j_hist(jnp.asarray(idx8), jnp.asarray(skey), jnp.asarray(tk).reshape(1, 1), 100, interpret=True))
-    got = TT.histogram_threshold_plane(_t(idx8)[None], _t(skey)[None], torch.tensor([tk]), 100)
+    got = TT.histogram_threshold_plane_plain(_t(idx8)[None], _t(skey)[None], torch.tensor([tk]), 100)
     np.testing.assert_array_equal(got[0].numpy(), want)
 
 
@@ -487,15 +488,22 @@ def test_cuda_ct_kernel_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_tuning_kernels_exact(cuda):
-    rng = np.random.default_rng(13)
-    plane = torch.as_tensor(_plane(rng, (4, 900, 1400), 0.07, 3000), device=cuda)
-    n = (plane != 32767).flatten(1).sum(1).to(torch.int32)
-    ks = torch.stack([(n - 1) // 2, n // 2], 1).clamp(min=0).to(torch.int32).contiguous()
-    assert torch.equal(TT.bisect16_pair(plane, ks), TT.bisect16_pair_plain(plane, ks))
-    idx8 = torch.as_tensor(rng.integers(-3, 105, (4, 900, 1400)).astype(np.int8), device=cuda)
-    skey = torch.as_tensor(rng.integers(-(2**31), 2**31 - 1, (4, 900, 1400), dtype=np.int64).astype(np.int32), device=cuda)
-    tk = torch.as_tensor(rng.integers(-(2**30), 2**30, 4).astype(np.int32), device=cuda)
-    assert torch.equal(
-        TT.histogram_threshold_plane(idx8, skey, tk, 100),
-        TT.histogram_threshold_plane_plain(idx8, skey, tk, 100),
-    )
+    """The fused route's two kernels against their plain versions on the
+    card: the peak list as a multiset, then the select's every output."""
+    spec = torch.as_tensor(
+        np.stack([_peaky_spectra(s, frames=900).T for s in (13, 14, 15)]), device=cuda
+    ).contiguous()
+    fmask = torch.ones((3, 900), dtype=torch.bool, device=cuda)
+    fmask[1, -50:] = False
+    band = TC.peak_band(8192)
+    keys, bins, n = TT.tuning_peaks(spec, fmask, *band)
+    keys_p, bins_p, n_p = TT.tuning_peaks_plain(spec, fmask, *band)
+    assert torch.equal(n, n_p)
+    for i in range(3):
+        m = int(n[i])
+        got = keys[i, :m].to(torch.int64) * 256 + bins[i, :m]
+        want = keys_p[i, :m].to(torch.int64) * 256 + bins_p[i, :m]
+        assert torch.equal(torch.sort(got).values, torch.sort(want).values)
+    got, want = TT.tuning_select(keys, bins, n), TT.tuning_select_plain(keys, bins, n)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
