@@ -31,12 +31,11 @@
 // frame. Design: the staged tile loop of frame_tiles.cuh, a frame a warp,
 // never a block-wide barrier inside a transform; the epilogue
 // reduces the magnitudes where the transform leaves them, lane q holding
-// slots q + 32 r in register r: total, weighted and log2 sum are warp sums,
-// and the rolloff prefix sum is eight 32-slot warp scans taken left to right
-// with a carry (the chunks and the order of the block-wide scan of
-// timbral_rows.cuh, so the count keeps its rounding), counted by ballot. No
-// magnitude reaches device memory: 5 floats a frame go out.
+// slots q + 32 r in register r (timbral_rows.cuh's warp_timbral_row, which
+// timbral_flat.cu shares). No magnitude reaches device memory: 5 floats a
+// frame go out.
 #include "frame_tiles.cuh"
+#include "timbral_rows.cuh"
 
 namespace {
 
@@ -53,39 +52,7 @@ struct TimbralEpilogue {
     // slot 255 carries the Nyquist bin, which lane 0 holds
     const float nyquist = __shfl_sync(kFull, nyq, 0);
     if (lane == 31) mag[7] = nyquist;
-    float total = 0.0f, weighted = 0.0f, logsum = 0.0f;
-    float cum[8];
-    float energy = 0.0f;  // the sum of the chunks before this one, then of all
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float m = mag[r];
-      total += m;
-      weighted += m * static_cast<float>(lane + 32 * r);
-      logsum += log2f(m);
-      float c = m * m;  // inclusive scan of chunk r (slots 32 r .. 32 r + 31)
-#pragma unroll
-      for (int s = 1; s < 32; s <<= 1) {
-        const float y = __shfl_up_sync(kFull, c, s);
-        if (lane >= s) c += y;
-      }
-      cum[r] = c + energy;
-      energy += __shfl_sync(kFull, c, 31);
-    }
-    const float target = energy * 0.95f;
-    int below = 0;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) below += __popc(__ballot_sync(kFull, cum[r] < target));
-    total = bliss::warp_sum(total);
-    weighted = bliss::warp_sum(weighted);
-    logsum = bliss::warp_sum(logsum);
-    if (lane == 0) {
-      float* o = out + static_cast<long long>(f) * 5;
-      o[0] = total;
-      o[1] = weighted;
-      o[2] = static_cast<float>(below);
-      o[3] = logsum;
-      o[4] = energy;
-    }
+    bliss::warp_timbral_row(mag, lane, out + static_cast<long long>(f) * 5);
   }
 
   __device__ __forceinline__ void tile_done(int, int) {}

@@ -30,7 +30,7 @@ NVCC_FLAGS = [
 ]
 
 #: Every kernel source, `csrc/<name>.cu`.
-SOURCES = ("timbral_fft", "specflux", "ct_stft", "frame_dft", "tuning")
+SOURCES = ("timbral_flat", "timbral_fft", "specflux", "ct_stft", "frame_dft", "tuning")
 
 LAUNCHES: dict[str, int] = {}
 

@@ -14,9 +14,10 @@ Six kernels, each with its plain PyTorch version in this module:
   other widths a block-wide radix-2 FFT);
 - `frame_dft_mags` (csrc/frame_dft.cu): DFT magnitudes of the 512-sample
   strided frames of a signal by a warp-level FFT, replacing `_make_kernel`;
-- `timbral_flat` (csrc/frame_dft.cu): the timbral reductions of a direct
-  (matrix-product) DFT of the same frames with Neumaier-compensated chunk
-  sums, replacing `_make_timbral_kernel`.
+- `timbral_flat` (csrc/timbral_flat.cu): the timbral reductions of a
+  direct (matrix-product) DFT of the same frames with Neumaier-compensated
+  chunk sums, on the tensor cores (wgmma, six bf16 products, one twiddle
+  block for the four chunks), replacing `_make_timbral_kernel`.
 
 `timbral_fft`, `specflux` and `frame_dft_mags` are three epilogues of one
 staged tile loop (csrc/frame_tiles.cuh) around a 512-point FFT a warp.
@@ -401,6 +402,33 @@ def timbral_flat_plain(
     return torch.cat(rows, dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _flat_block(device: str) -> torch.Tensor:
+    """`_flat_twiddle_block` of the default twiddle table, once per device."""
+    return _flat_twiddle_block(_constants(TIMBRAL_WINDOW, device)[1])
+
+
+def _flat_twiddle_block(twiddle: torch.Tensor) -> torch.Tensor:
+    """The flat kernel's B operand: rows n < 128 of `_flat_dft_matrices`
+    (chunk 0; chunk c's rows are these turned by (-i)^(ck)), the cos and
+    -sin columns of a slot side by side (`[128, 512]`), split into three
+    bf16 pieces (each rounded to nearest from the f32 residual of the ones
+    before) and laid out as the kernel streams it: for each 32-column
+    N-tile and 32-row k-stage the three pieces' no-swizzle K-major tiles,
+    8 x 8 core matrices with k fastest (384 KB, bf16)."""
+    cos_m, sin_m = _flat_dft_matrices(twiddle)
+    w = TIMBRAL_HOP
+    rest = torch.stack([cos_m[:w], sin_m[:w]], dim=-1).reshape(w, 2 * cos_m.shape[1])
+    pieces = []
+    for _ in range(3):
+        piece = rest.to(torch.bfloat16)
+        pieces.append(piece)
+        rest = rest - piece.float()
+    # [piece, k-stage, k core, k in core, N-tile, n core, n in core]
+    tiles = torch.stack(pieces).reshape(3, 4, 4, 8, 16, 4, 8)
+    return tiles.permute(4, 1, 0, 2, 5, 6, 3).contiguous()
+
+
 def timbral_flat(
     signal: torch.Tensor,
     n_frames: int,
@@ -408,18 +436,30 @@ def timbral_flat(
     twiddle: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-frame raw timbral reductions `[B, n_frames, 5]` of the 512/128
-    frames of `signal [B, T]` from a direct f32 DFT (not an FFT): the
-    counterpart of the JAX package's flat kernel. Its flatness sits farther
+    frames of `signal [B, T]` from a direct DFT (not an FFT): the
+    counterpart of the JAX package's flat kernel. On the card the product
+    runs on the tensor cores at no less than f32 precision (six bf16
+    products, as the TPU's `Precision.HIGHEST`). Its flatness sits farther
     from the f32-FFT reference than `timbral_fft`'s on quiet content, so
     it is not the default route."""
+    default_twiddle = twiddle is None
     window, twiddle = _resolve(signal, TIMBRAL_WINDOW, window, twiddle)
     if not _build.on_cuda(signal):
         return timbral_flat_plain(signal, n_frames, window, twiddle)
-    out = torch.empty(
-        (signal.shape[0], n_frames, 5), dtype=torch.float32, device=signal.device
+    dev = signal.device
+    _build.require("signal", signal, torch.float32, 2, dev)
+    _build.require("window", window, torch.float32, 1, dev)
+    _build.require("twiddle", twiddle, torch.float32, 2, dev)
+    if window.shape[0] != TIMBRAL_WINDOW or twiddle.shape != (2, 257):
+        raise ValueError("512-point window and twiddles expected")
+    bmat = _flat_block(str(dev)) if default_twiddle else _flat_twiddle_block(twiddle)
+    out = torch.empty((signal.shape[0], n_frames, 5), dtype=torch.float32, device=dev)
+    fn = _build.function("timbral_flat", "timbral_flat_launch", [_P, _I, _L, _I, _I, _I, _P, _P, _P, _P])
+    err = fn(
+        _build.ptr(signal), signal.shape[0], signal.shape[1], n_frames, TIMBRAL_HOP,
+        TIMBRAL_OFFSET, _build.ptr(window), _build.ptr(bmat), _build.ptr(out),
+        _build.stream_ptr(dev),
     )
-    _launch_frames(
-        "frame_dft", "timbral_flat_launch", signal, n_frames, TIMBRAL_HOP,
-        TIMBRAL_OFFSET, window, twiddle, out, counted="timbral_flat",
-    )
+    _build.check("timbral_flat", err)
+    _build.count_launch("timbral_flat")
     return out

@@ -120,9 +120,9 @@ def test_cuda_path_is_f32_only():
         ("tuning.cu", "pallas_hist.py:45 _make_kernel"),
         ("ct_stft.cu", "pallas_dft.py:_make_ct_kernel"),
         ("frame_dft.cu", "pallas_dft.py:53 _make_kernel"),
-        ("frame_dft.cu", "pallas_dft.py:80 _make_timbral_kernel"),
+        ("timbral_flat.cu", "pallas_dft.py:80 _make_timbral_kernel"),
         ("frame_dft.cu", "Bound on the card, frame_dft_mags: bytes"),
-        ("frame_dft.cu", "Bound on the card, timbral_flat: operations"),
+        ("timbral_flat.cu", "Bound on the card, timbral_flat: operations"),
         ("tuning.cu", "bisect8_keys"),
         ("tuning.cu", "pallas_select.py:129 _make_bisect16_pair_kernel"),
         ("tuning.cu", "pallas_hist.py:93 _make_threshold_kernel"),
@@ -147,14 +147,20 @@ def test_frame_dft_mags_kernel_is_an_fft():
     """The magnitudes kernel transforms by the warp FFT of fft_common.cuh
     (through the staged tile loop of frame_tiles.cuh) and forms no direct
     DFT product; its note says so. The flat timbral kernel keeps the direct
-    product."""
+    product, on the tensor cores: it issues wgmma, six bf16 products a k
+    step, and has no SIMT `accumulate(` loop (nor does frame_dft.cu)."""
     csrc = REPO / "bliss_tpu_torch" / "csrc"
     text = (csrc / "frame_dft.cu").read_text()
     body = _kernel_body(text, "frame_dft_mags_kernel")
     assert "bliss::frame_tiles(" in body and "accumulate(" not in body
     assert "using Body = bliss::Rfft512Body;" in text
     assert "warp_rfft512_mags(" in _device_body((csrc / "frame_tiles.cuh").read_text(), "mags")
-    assert "accumulate(" in _kernel_body(text, "timbral_flat_kernel")
+    flat = (csrc / "timbral_flat.cu").read_text()
+    assert "six_products(" in _kernel_body(flat, "timbral_flat_kernel")
+    assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in flat
+    assert _device_body(flat, "six_products").count("wgmma_rs(") == 6
+    assert "accumulate(" not in flat and "timbral_flat" not in text.replace("timbral_flat.cu", "")
+    assert "tf32" not in flat.lower()
     note = text[: text.index("#include")]
     assert "warp_rfft512_mags" in note and "a frame per warp" in note
     assert "warp_rfft512_mags" in (csrc / "fft_common.cuh").read_text()
