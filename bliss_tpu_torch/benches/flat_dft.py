@@ -3,35 +3,26 @@
 
     python3 bliss_tpu_torch/benches/flat_dft.py [--against DIR] [--seed N]
 
-Builds this tree's `timbral_flat.cu` and `timbral_fft.cu` (one nvcc each, all
-started together, `-Xptxas -v`: registers, spills and ptxas warnings printed)
-and, with `--against DIR` (a checkout that holds `bliss_tpu_torch/csrc`, e.g.
-the parent unpacked with `git archive HEAD~1 bliss_tpu_torch | tar -x -C
-tmp/parent`), the same entries of that checkout: its `timbral_flat_launch`
-from `csrc/timbral_flat.cu` if it has one, else from `csrc/frame_dft.cu`
-(the direct DFT on the CUDA cores, with the twiddle table's two rows in place
-of the tensor-core twiddle block). On 8 synthetic-noise songs of 5 minutes
-(the batch's bucket, 57,341 frames a song) it times each in the order other,
-this, its variants, the variants again, this, other (CUDA events, 10 calls
-back to back), holds this tree's rows
-against the plain version and the other tree's (relative error of total,
-weighted and energy, `below`, geometric mean) and says whether
-`timbral_fft`'s rows of the two trees are equal bit for bit.
+Builds this tree's `timbral_flat.cu` and `timbral_fft.cu`, the flat kernel's
+bf16x3 control (the same source with `-DBLISS_FLAT_PRODUCTS=3`: hh, hm and
+mh only) and, with `--against DIR` (a checkout that holds
+`bliss_tpu_torch/csrc`, e.g. the parent unpacked with `git archive HEAD~1
+bliss_tpu_torch | tar -x -C tmp/parent`), the same entries of that checkout:
+its `timbral_flat_launch` from `csrc/timbral_flat.cu` if it has one, else
+from `csrc/frame_dft.cu` (the direct DFT on the CUDA cores, with the twiddle
+table's two rows in place of the tensor-core twiddle block). One nvcc each,
+all started together, `-Xptxas -v`: registers, spills and ptxas warnings
+printed.
 
-Two schedules of this tree's kernel are built beside it from edited copies
-of its source (`VARIANTS`), timed in the same rounds and held to the same
-rows: `interleaved` issues the four chunks' products in turn, k16 step by
-k16 step (four accumulator chains in flight a warpgroup, not one), and
-`chained` keeps one accumulator a chunk over the whole 128-deep dot instead
-of a fresh one each 32-deep k-stage (its rows drift from the f64 DFT's).
-Probes give wrong rows and are only timed: `probe_form_once` forms the A
-pieces in the first N-tile only, `probe_no_products` issues no wgmma (and
-so forms no A pieces: staging, the ring, the sums and the rows alone),
-`probe_no_staging` leaves the slab unstaged, `probe_no_rows` forms no
-rows. Each held variant's per-frame geometric-mean distance to an f64 DFT
-of the same frames is printed beside the plain version's. The split is six
-bf16 products in all of them; the design's floor for it (six bf16 passes at
-989 TFLOP/s) is printed beside the times.
+On 8 synthetic-noise songs of 5 minutes (the batch's bucket, 57,341 frames
+a song) it holds each build's rows at `dft_kernels.timbral_flat_held`'s
+limits, the ones chip_smoke.py holds the kernel to (the sums against the
+plain version, the log2 sum's geometric mean against an f64 DFT beside the
+plain version's), says whether `timbral_fft`'s rows of the two trees are
+equal bit for bit, and times the builds in the order other, this, control,
+control, this, other (CUDA events, 10 calls back to back) beside the
+design's floor (six bf16 passes at 989 TFLOP/s). It exits 1 if this tree's
+kernel breaks a limit or the control does not.
 
 Needs a GPU and nvcc. Prints the card's name and power limit first.
 """
@@ -40,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import math
 import pathlib
 import subprocess
 import sys
@@ -52,90 +42,24 @@ sys.path.insert(0, str(REPO))
 
 from bliss_tpu_torch.ops import _build  # noqa: E402
 from bliss_tpu_torch.ops import dft_kernels as DK  # noqa: E402
-from chip_smoke import f64_flat_rows, geo_gap  # noqa: E402
 
 SONGS, T, N_FRAMES = 8, 7_340_032, 57_341
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-_SHIPPED_LOOP = """      APieces a[2];
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-        for (int ks = 0; ks < kStageK / 16; ++ks) {
-          APieces& cur = a[(c * 2 + ks) & 1];
-          form_a(cur, slab, swin, row0, c, kst * kStageK + ks * 16, t);
-          wgmma_fence();
-          six_products(acc[c], cur, stage, ks);
-          wgmma_commit();
-          wgmma_wait<1>();
-        }
-      }"""
-_INTERLEAVED_LOOP = """      APieces a[kChunks];
-#pragma unroll
-      for (int ks = 0; ks < kStageK / 16; ++ks) {
-#pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          form_a(a[c], slab, swin, row0, c, kst * kStageK + ks * 16, t);
-          wgmma_fence();
-          six_products(acc[c], a[c], stage, ks);
-          wgmma_commit();
-          wgmma_wait<kChunks - 1>();
-        }
-      }"""
-_FORM = "form_a(cur, slab, swin, row0, c, kst * kStageK + ks * 16, t);"
-_STAGING = """  for (int i = threadIdx.x; i < kSlabFloats; i += kConsumers) {
-    const long long s = base + i;
-    slab[(i / kHop) * kSlabStride + i % kHop] = (s >= 0 && s < t_len) ? xs[s] : 0.0f;
-  }"""
-_ROW = "bliss::warp_timbral_row(mag, lane, os + static_cast<long long>(f) * 5);"
-
-#: Other schedules of `csrc/timbral_flat.cu`, as edits of its text.
-VARIANTS = {
-    "interleaved": [(_SHIPPED_LOOP, _INTERLEAVED_LOOP)],
-    "chained": [
-        # zero the accumulators once an N-tile, not each k-stage
-        ("#pragma unroll\n      for (int i = 0; i < 16; ++i) run[c][i] = 0.0f;",
-         "{\n      for (int i = 0; i < 16; ++i) acc[c][i] = 0.0f;\n      fence_acc(acc[c]);\n    }"),
-        ("#pragma unroll\n      for (int c = 0; c < kChunks; ++c) {\n#pragma unroll\n"
-         "        for (int i = 0; i < 16; ++i) acc[c][i] = 0.0f;\n        fence_acc(acc[c]);\n      }\n", ""),
-        ("#pragma unroll\n        for (int i = 0; i < 16; ++i) run[c][i] = __fadd_rn(run[c][i], acc[c][i]);\n", ""),
-        ("run[c][4 * j + 2 * h], im = run[c][4 * j + 2 * h + 1]",
-         "acc[c][4 * j + 2 * h], im = acc[c][4 * j + 2 * h + 1]"),
-    ],
-    # probes, wrong rows: the A pieces formed in the first N-tile only (the
-    # cost of forming them), no products at all (everything else), no slab
-    # staging, no rows
-    "probe_form_once": [(_FORM, "if (nt == 0) " + _FORM)],
-    "probe_no_products": [("six_products(acc[c], cur, stage, ks);", "")],
-    "probe_no_staging": [(_STAGING, "")],
-    "probe_no_rows": [(_ROW, "if (mag[0] == -1.0f) os[f] = mag[7];")],
-}
-
-
-def variant_source(name: str) -> pathlib.Path:
-    """`csrc/timbral_flat.cu` with variant `name`'s edits, beside the
-    original in the build directory (it includes the headers of csrc)."""
-    text = (_build.CSRC / "timbral_flat.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if old not in text:
-            raise RuntimeError(f"variant {name}: the source no longer has {old[:60]!r}")
-        text = text.replace(old, new)
-    out = _build.BUILD / "flat_bench" / f"timbral_flat_{name}.cu"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(text)
-    return out
+#: The bf16x3 control: the kernel's source with three products a k step.
+CONTROL_FLAGS = ["-DBLISS_FLAT_PRODUCTS=3"]
 
 
 def build(jobs: dict) -> dict:
-    """`{key: source path}` -> `{key: loaded library}`, one nvcc each, all
-    started together; prints each build's registers, spills and warnings."""
+    """`{key: (source path, extra nvcc flags)}` -> `{key: loaded library}`,
+    one nvcc each, all started together; prints each build's registers,
+    spills and warnings."""
     out_dir = _build.BUILD / "flat_bench"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for key, src in jobs.items():
+    for key, (src, flags) in jobs.items():
         lib = out_dir / f"lib{key}.so"
-        cmd = [_build.nvcc(), "-Xptxas", "-v", *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(lib), str(src)]
+        cmd = [_build.nvcc(), "-Xptxas", "-v", *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)]
         procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (lib, proc) in procs.items():
@@ -161,15 +85,16 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def row_errors(got, want) -> str:
-    fin = torch.isfinite(want)
-    same = torch.equal(fin, torch.isfinite(got)) and torch.equal(got[~fin], want[~fin])
-    diff = torch.where(fin, (got - want).abs(), 0.0)
-    scale = torch.clamp(torch.where(fin, want.abs(), 0.0), min=1e-30)
-    rel = max((diff[..., c] / scale[..., c]).max().item() for c in (0, 1, 4))
-    geo = (diff[..., 3] * math.log(2.0) / 256).max().item()
-    return (f"relative {rel:.3g}, below {diff[..., 2].max().item()}, geo_mean {geo:.3g}, "
-            f"same non-finite entries {same}")
+def held(key: str, got, want, exact) -> bool:
+    """Prints `got`'s readings at timbral_flat_held's limits; True if it
+    meets them."""
+    r, broken = DK.timbral_flat_held(got, want, exact)
+    print(f"{key}: relative {r['rel']:.3g}, below {r['below']:g}; per-frame geo_mean distance "
+          f"mean (max) to f64 {r['geo_f64_mean']:.3g} ({r['geo_f64_max']:.3g}), plain to f64 "
+          f"{r['geo_plain_f64_mean']:.3g} ({r['geo_plain_f64_max']:.3g}), to plain "
+          f"{r['geo_plain_mean']:.3g} ({r['geo_plain_max']:.3g}); limits broken: "
+          f"{'; '.join(broken) or 'none'}", flush=True)
+    return not broken
 
 
 def main() -> None:
@@ -182,26 +107,29 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    jobs = {"flat": _build.CSRC / "timbral_flat.cu", "fft": _build.CSRC / "timbral_fft.cu"}
-    jobs.update({name: variant_source(name) for name in VARIANTS})
+    jobs = {
+        "flat": (_build.CSRC / "timbral_flat.cu", []),
+        "fft": (_build.CSRC / "timbral_fft.cu", []),
+        "control": (_build.CSRC / "timbral_flat.cu", CONTROL_FLAGS),
+    }
     other_csrc = args.against.resolve() / "bliss_tpu_torch" / "csrc" if args.against else None
     if other_csrc:
         flat = other_csrc / "timbral_flat.cu"
-        jobs["other_flat"] = flat if flat.exists() else other_csrc / "frame_dft.cu"
-        jobs["other_fft"] = other_csrc / "timbral_fft.cu"
+        jobs["other_flat"] = (flat if flat.exists() else other_csrc / "frame_dft.cu", [])
+        jobs["other_fft"] = (other_csrc / "timbral_fft.cu", [])
     libs = build(jobs)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     x = torch.randn((SONGS, T), generator=gen, device=dev) * 0.1
     win, tw = DK._constants(512, "cuda:0")
-    bmat = DK._flat_block("cuda:0")
+    bmat = DK._flat_block(tw)
     outs = {k: torch.empty((SONGS, N_FRAMES, 5), device=dev) for k in libs}
     head = (x, SONGS, T, N_FRAMES, DK.TIMBRAL_HOP, DK.TIMBRAL_OFFSET)
 
     def launcher(key):
         fn = libs[key].timbral_fft_launch if key.endswith("fft") else libs[key].timbral_flat_launch
-        tensor_cores = jobs[key].name.startswith("timbral_flat")
+        tensor_cores = jobs[key][0].name == "timbral_flat.cu"
         fn.restype = I
         if tensor_cores:  # (x, B, T, F, hop, offset, win, twiddle block, out, stream)
             fn.argtypes = [P, I, L, I, I, I, P, P, P, P]
@@ -221,33 +149,31 @@ def main() -> None:
         run()
     torch.cuda.synchronize()
     want = DK.timbral_flat_plain(x, N_FRAMES)
-    exact = f64_flat_rows(x, N_FRAMES)
-    held = ["flat", *(k for k in VARIANTS if not k.startswith("probe_"))]
-    for key in ("plain", *held, *(["other_flat"] if other_csrc else [])):
-        gap = geo_gap(want if key == "plain" else outs[key], exact)
-        print(f"{key}: per-frame geo_mean distance to an f64 DFT max {gap.max().item():.3g} "
-              f"mean {gap.mean().item():.3g}", flush=True)
-    del exact
-    for key in held:
-        print(f"this tree's timbral_flat ({key}) vs plain: {row_errors(outs[key], want)}", flush=True)
+    exact = DK.timbral_flat_f64(x, N_FRAMES)
+    ok = held("this tree's timbral_flat", outs["flat"], want, exact)
+    refused = not held("bf16x3 control", outs["control"], want, exact)
+    print(f"the limits refuse the bf16x3 control: {refused}", flush=True)
     if other_csrc:
-        print(f"other tree's timbral_flat ({jobs['other_flat'].name}) vs plain: "
-              f"{row_errors(outs['other_flat'], want)}", flush=True)
-        print(f"this tree's timbral_flat vs the other's: {row_errors(outs['flat'], outs['other_flat'])}",
-              flush=True)
+        held(f"other tree's timbral_flat ({jobs['other_flat'][0].name})", outs["other_flat"], want,
+             exact)
+        gap = DK.geo_gap(outs["flat"], outs["other_flat"])
+        print(f"this tree's timbral_flat vs the other's: equal bit for bit "
+              f"{torch.equal(outs['flat'], outs['other_flat'])}, per-frame geo_mean distance max "
+              f"{gap.max().item():.3g}", flush=True)
         print(f"timbral_fft rows of the two trees equal bit for bit: "
               f"{torch.equal(outs['fft'], outs['other_fft'])}", flush=True)
-    del want
+    del want, exact
     floor_ms = SONGS * N_FRAMES * 512 * 512 * 2 * 6 / 989e12 * 1e3
-    order = ["flat", *VARIANTS]
-    order = order + order[::-1]
+    order = ["flat", "control", "control", "flat"]
     if other_csrc:
         order = ["other_flat", *order, "other_flat"]
     for i, key in enumerate(order):
-        name = f"this tree, {key}" if key != "other_flat" else "other tree"
+        name = {"flat": "this tree", "control": "bf16x3 control", "other_flat": "other tree"}[key]
         print(f"timbral_flat [{SONGS}, {T}], {N_FRAMES} frames, {name} (run {i}): "
               f"{time_ms(runs[key]):.4f} ms; six bf16 passes at 989 TFLOP/s: {floor_ms:.4f} ms",
               flush=True)
+    if not (ok and refused):
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -25,10 +25,16 @@
 // Accuracy: wgmma's f32 sum does not round to nearest. With the 48 wgmma
 // of a chunk chained in one accumulator the totals sat ~2e-6 from the plain
 // version's and the rows of 8 x 5-min noise songs 6.6e-7 from an f64 DFT
-// (per-frame geometric mean, averaged over the frames; H100,
-// benches/flat_dft.py's `chained`). So each 32-deep k-stage starts a fresh accumulator, and the
-// stage sums are added in f32 with rounding to nearest: 1.3e-7, the largest
-// frame 2.4e-4 where the plain f32 product's is 5.7e-4.
+// (per-frame geometric mean, averaged over the frames, where the plain f32
+// product reads 2.9e-8; H100). So each 32-deep k-stage starts a fresh
+// accumulator, and the stage sums are added in f32 with rounding to
+// nearest: 1.3e-7. That costs the N-tile of 64 columns (four accumulators
+// and four running sums fit only at 32): one accumulator a chunk at
+// m64n64 ran in 3.24 ms where this runs in 4.4. The limit that decides it
+// is ops/dft_kernels.py's FLAT_GEO_EXCESS, 2e-7 over the plain version's
+// mean distance; built with -DBLISS_FLAT_PRODUCTS=3 (hh, hm, mh only: bf16x3)
+// this kernel is the control that limit must refuse
+// (benches/flat_dft.py).
 //
 // Design:
 // - One twiddle block for the four chunks. W^((128c + n) k) = (-i)^(ck)
@@ -62,6 +68,11 @@
 #include <cstdint>
 
 #include "timbral_rows.cuh"
+
+#ifndef BLISS_FLAT_PRODUCTS
+#define BLISS_FLAT_PRODUCTS 6
+#endif
+static_assert(BLISS_FLAT_PRODUCTS == 6 || BLISS_FLAT_PRODUCTS == 3, "six products, or the bf16x3 control");
 
 namespace {
 
@@ -229,9 +240,11 @@ __device__ __forceinline__ void six_products(float (&d)[16], const APieces& a,
   const uint32_t b = stage + ks * 1024;  // two 8-k core columns a step
   const uint64_t bh = b_desc(b), bm = b_desc(b + kPieceBytes),
                  bl = b_desc(b + 2 * kPieceBytes);
-  wgmma_rs(d, a.mid, bm);
-  wgmma_rs(d, a.lo, bh);
-  wgmma_rs(d, a.hi, bl);
+  if (BLISS_FLAT_PRODUCTS == 6) {
+    wgmma_rs(d, a.mid, bm);
+    wgmma_rs(d, a.lo, bh);
+    wgmma_rs(d, a.hi, bl);
+  }
   wgmma_rs(d, a.mid, bh);
   wgmma_rs(d, a.hi, bm);
   wgmma_rs(d, a.hi, bh);

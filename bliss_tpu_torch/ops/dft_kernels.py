@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import weakref
 
 import torch
 
@@ -402,10 +404,99 @@ def timbral_flat_plain(
     return torch.cat(rows, dim=1)
 
 
-@functools.lru_cache(maxsize=None)
-def _flat_block(device: str) -> torch.Tensor:
-    """`_flat_twiddle_block` of the default twiddle table, once per device."""
-    return _flat_twiddle_block(_constants(TIMBRAL_WINDOW, device)[1])
+def timbral_flat_f64(
+    signal: torch.Tensor,
+    n_frames: int,
+    window: torch.Tensor | None = None,
+    block: int = 16384,
+) -> torch.Tensor:
+    """Rows `[B, n_frames, 5]` (f64) of an f64 DFT of the same f32 windowed
+    512/128 frames that `timbral_flat` and its plain version transform: the
+    truth their log2 sums are held to (`timbral_flat_held`)."""
+    window, _ = _resolve(signal, TIMBRAL_WINDOW, window, None)
+    rows = []
+    for lo in range(0, n_frames, block):
+        fr = frame_signal(signal, TIMBRAL_WINDOW, TIMBRAL_HOP,
+                          TIMBRAL_OFFSET - TIMBRAL_HOP * lo, min(block, n_frames - lo))
+        m = torch.fft.rfft((fr * window).double(), dim=-1).abs()
+        rows.append(timbral_rows(torch.cat([m[..., :255], m[..., 256:]], -1)))
+    return torch.cat(rows, 1)
+
+
+def geo_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-frame distance of the geometric means exp2(log2 sum / 256) that
+    two sets of rows give, |d log2 sum| * ln 2 / 256 (relative); 0 where
+    either is not finite."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    both = torch.isfinite(a[..., 3]) & torch.isfinite(b[..., 3])
+    return torch.where(both, (a[..., 3] - b[..., 3]).abs(), 0.0) * (math.log(2.0) / 256)
+
+
+#: `timbral_flat`'s limits. Against the plain version: total, weighted and
+#: energy within relative 1e-5, `below` within +-1 (ties on the 95% energy
+#: line), non-finite entries equal. The log2 sum weighs every near-silent
+#: bin, where any two f32 products of different order disagree (the plain
+#: version's worst frame of chip_smoke.py's batch sits 8.8e-3 from the f64
+#: DFT), so it is held to `timbral_flat_f64`: averaged over the frames, the
+#: per-frame geometric-mean distance at most 2e-7 above the plain version's;
+#: on the worst frame within 1e-5 or no farther than the plain version's
+#: worst. On 8 x 5-min noise songs (H100, benches/flat_dft.py) the kernel
+#: reads 1.0e-7 above the plain version, its bf16x3 control 5.6e-7 and one
+#: accumulator a chunk 6.3e-7.
+FLAT_REL, FLAT_BELOW, FLAT_GEO_EXCESS, FLAT_GEO_WORST = 1e-5, 1, 2e-7, 1e-5
+
+
+def timbral_flat_held(got, want, exact) -> tuple[dict, list[str]]:
+    """`timbral_flat`'s rows `got` held to the plain version's `want` and
+    the f64 DFT's `exact` at the limits above: (readings, broken limits)."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    fin = torch.isfinite(want)
+    same = torch.equal(fin, torch.isfinite(got)) and torch.equal(got[~fin], want[~fin])
+    diff = torch.where(fin, (got - want).abs(), 0.0)
+    scale = torch.where(fin, want.abs(), 0.0).clamp(min=1e-30)
+    r = {
+        "rel": max((diff[..., c] / scale[..., c]).max().item() for c in (0, 1, 4)),
+        "below": diff[..., 2].max().item(),
+        "abs": diff[..., [0, 1, 4]].max().item(),
+    }
+    for key, a, b in (("plain", got, want), ("f64", got, exact), ("plain_f64", want, exact)):
+        gap = geo_gap(a, b)
+        r[f"geo_{key}_max"], r[f"geo_{key}_mean"] = gap.max().item(), gap.mean().item()
+    broken = []
+    if not same:
+        broken.append("non-finite entries differ from the plain version's")
+    if r["rel"] > FLAT_REL:
+        broken.append(f"relative {r['rel']:.3g} (limit {FLAT_REL:g})")
+    if r["below"] > FLAT_BELOW:
+        broken.append(f"below {r['below']:g} (limit {FLAT_BELOW})")
+    mean_limit = r["geo_plain_f64_mean"] + FLAT_GEO_EXCESS
+    if r["geo_f64_mean"] > mean_limit:
+        broken.append(f"mean geo_mean distance to f64 {r['geo_f64_mean']:.3g} (limit {mean_limit:.3g})")
+    worst_limit = max(FLAT_GEO_WORST, r["geo_plain_f64_max"])
+    if r["geo_f64_max"] > worst_limit:
+        broken.append(f"worst geo_mean distance to f64 {r['geo_f64_max']:.3g} (limit {worst_limit:.3g})")
+    return r, broken
+
+
+#: `_flat_twiddle_block` of each twiddle tensor a caller passed, built once
+#: (keyed by id: a tensor's `==` is elementwise), dropped with the tensor.
+#: The analyzer's tables and `_constants` keep one tensor a device, so every
+#: call of the route after the first finds its block here.
+_FLAT_BLOCKS: dict[int, tuple] = {}
+
+
+def _flat_block(twiddle: torch.Tensor) -> torch.Tensor:
+    """`_flat_twiddle_block(twiddle)`, cached by the tensor (and built
+    again if it was written in place since)."""
+    key = id(twiddle)
+    hit = _FLAT_BLOCKS.get(key)
+    if hit is None or hit[0]() is not twiddle:
+        hit = None
+        weakref.finalize(twiddle, _FLAT_BLOCKS.pop, key, None)
+    if hit is None or hit[1] != twiddle._version:
+        hit = (weakref.ref(twiddle), twiddle._version, _flat_twiddle_block(twiddle))
+        _FLAT_BLOCKS[key] = hit
+    return hit[2]
 
 
 def _flat_twiddle_block(twiddle: torch.Tensor) -> torch.Tensor:
@@ -442,7 +533,6 @@ def timbral_flat(
     products, as the TPU's `Precision.HIGHEST`). Its flatness sits farther
     from the f32-FFT reference than `timbral_fft`'s on quiet content, so
     it is not the default route."""
-    default_twiddle = twiddle is None
     window, twiddle = _resolve(signal, TIMBRAL_WINDOW, window, twiddle)
     if not _build.on_cuda(signal):
         return timbral_flat_plain(signal, n_frames, window, twiddle)
@@ -452,7 +542,7 @@ def timbral_flat(
     _build.require("twiddle", twiddle, torch.float32, 2, dev)
     if window.shape[0] != TIMBRAL_WINDOW or twiddle.shape != (2, 257):
         raise ValueError("512-point window and twiddles expected")
-    bmat = _flat_block(str(dev)) if default_twiddle else _flat_twiddle_block(twiddle)
+    bmat = _flat_block(twiddle)
     out = torch.empty((signal.shape[0], n_frames, 5), dtype=torch.float32, device=dev)
     fn = _build.function("timbral_flat", "timbral_flat_launch", [_P, _I, _L, _I, _I, _I, _P, _P, _P, _P])
     err = fn(

@@ -53,16 +53,17 @@
    the MP3 golden fixture, its drift beside the default route's (reported);
 9. routes: holds `frame_dft_mags` (hops 128 and 256), `timbral_flat` and
    `ct_frames_mags` (the framed route's `[8 F, 8192]`) against their plain
-   versions on the 8 x 5-minute batch (`timbral_flat`'s log2 sum against
-   an f64 DFT of the same frames, within 1e-5 or no farther than the plain
-   version, and its song-level flatness features against the plain rows'
-   at 1e-5; it is also printed beside its design's floor at the bf16
-   tensor-core peak and six bf16 `torch.matmul` calls of the same GEMM
-   shape as a yardstick, and held on its edge cases:
-   B = 3 at T = 200,000, 1 and 1,501 frames, a ragged frame count, frames
-   past T, an all-zero and a near-silent song), then drives one
-   `analyze_batch` per non-default route (`timbral="flat"`; `timbral="mags"`
-   with `tempo="mags"`; `chroma_stft="framed"`) with the counts reset,
+   versions on the 8 x 5-minute batch (`timbral_flat` called with the
+   route's tables, its log2 sum against an f64 DFT of the same frames at
+   `dft_kernels.timbral_flat_held`'s limits, and its song-level flatness
+   features against the plain rows' at 1e-5; it is also printed beside
+   its design's floor at the bf16 tensor-core peak and six bf16
+   `torch.matmul` calls of the same GEMM shape as a yardstick, and held on
+   its edge cases: B = 3 at T = 200,000, 1 and 1,501 frames, a ragged
+   frame count, frames past T, an all-zero and a near-silent song), then
+   drives one `analyze_batch` per non-default route (`timbral="flat"`;
+   `timbral="mags"` with `tempo="mags"`; `chroma_stft="framed"`) with the
+   counts reset,
    checks each route's launches, prints each vector's distance to the
    default route's (tempo must be equal, chroma within 1e-5; the timbral
    features of the `"flat"` and `"mags"` routes are reported), and the
@@ -980,57 +981,25 @@ def hold_ct_edge_cases(dev) -> None:
     print("  ct edge cases vs plain, of each frame's max: " + "; ".join(held), flush=True)
 
 
-def f64_flat_rows(x, n_frames: int, block: int = 16384):
-    """The rows of an f64 DFT of the same f32 windowed 512/128 frames that
-    `timbral_flat` and its plain version transform: the truth both are held
-    to on the log2 sum."""
+def hold_flat(got, want, label: str, sig, nf: int):
+    """`timbral_flat`'s rows against its plain version's and an f64 DFT's of
+    the same frames at `dft_kernels.timbral_flat_held`'s limits (the log2 sum
+    through the mean and worst per-frame geometric-mean distance to the f64
+    DFT, beside the plain version's own); the per-frame distance to the
+    plain version is printed too. Returns the largest absolute error of the
+    total, weighted and energy columns."""
     from bliss_tpu_torch.ops import dft_kernels as DK
-    from bliss_tpu_torch.ops.windows import frame_signal
 
-    win = DK._constants(DK.TIMBRAL_WINDOW, str(x.device))[0]
-    rows = []
-    for lo in range(0, n_frames, block):
-        fr = frame_signal(x, DK.TIMBRAL_WINDOW, DK.TIMBRAL_HOP,
-                          DK.TIMBRAL_OFFSET - DK.TIMBRAL_HOP * lo, min(block, n_frames - lo))
-        m = torch.fft.rfft((fr * win).double(), dim=-1).abs()
-        rows.append(DK.timbral_rows(torch.cat([m[..., :255], m[..., 256:]], -1)))
-    return torch.cat(rows, 1)
-
-
-def geo_gap(a, b):
-    """Per-frame distance of the geometric means exp2(log2 sum / 256) that two
-    sets of rows give, |d sum| * ln 2 / 256; 0 where either is not finite."""
-    both = torch.isfinite(a[..., 3]) & torch.isfinite(b[..., 3])
-    return torch.where(both, (a[..., 3] - b[..., 3]).abs(), 0.0).double() * math.log(2.0) / 256
-
-
-def hold_flat(got, want, exact, label: str):
-    """`timbral_flat`'s rows against its plain version's: non-finite entries
-    equal, total, weighted and energy within relative 1e-5, `below` within
-    +-1 (ties on the 95% energy line). The log2 sum weighs every near-silent
-    bin, whose value two f32 products of different order round differently
-    (the plain version's own distance to an f64 DFT reaches 8.8e-3 on a
-    frame of the 8 x 5-min batch, on an H100), so it is held to the f64 DFT's
-    rows `exact`: the kernel's largest per-frame geometric-mean distance to
-    them within 1e-5, or within the plain version's own. Returns the largest
-    absolute error of the total, weighted and energy columns."""
-    fin = torch.isfinite(want)
-    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[~fin], want[~fin]):
-        fail(f"timbral_flat {label}: non-finite entries differ from the plain version")
-    diff = torch.where(fin, (got - want).abs(), 0.0)
-    scale = torch.clamp(torch.where(fin, want.abs(), 0.0), min=1e-30)
-    rel = max((diff[..., c] / scale[..., c]).max().item() for c in (0, 1, 4))
-    below = diff[..., 2].max().item()
-    kp, ke, pe = geo_gap(got, want), geo_gap(got, exact), geo_gap(want, exact)
-    limit = max(1e-5, pe.max().item())
-    print(f"  timbral_flat {label}: relative error {rel:.3g}, below max diff {below}; per-frame "
-          f"geo_mean distance max (mean): to plain {kp.max().item():.3g} ({kp.mean().item():.3g}), "
-          f"to f64 {ke.max().item():.3g} ({ke.mean().item():.3g}), plain to f64 "
-          f"{pe.max().item():.3g} ({pe.mean().item():.3g})", flush=True)
-    if rel > 1e-5 or below > 1 or ke.max().item() > limit:
-        fail(f"timbral_flat {label}: relative {rel:.3g} (limit 1e-5), below {below} (limit 1), "
-             f"geo_mean to f64 {ke.max().item():.3g} (limit {limit:.3g})")
-    return diff[..., [0, 1, 4]].max().item()
+    r, broken = DK.timbral_flat_held(got, want, DK.timbral_flat_f64(sig, nf))
+    print(f"  timbral_flat {label}: relative error {r['rel']:.3g}, below max diff {r['below']:g}; "
+          f"per-frame geo_mean distance mean (max): to f64 {r['geo_f64_mean']:.3g} "
+          f"({r['geo_f64_max']:.3g}), plain to f64 {r['geo_plain_f64_mean']:.3g} "
+          f"({r['geo_plain_f64_max']:.3g}), limit {r['geo_plain_f64_mean'] + DK.FLAT_GEO_EXCESS:.3g} "
+          f"({max(DK.FLAT_GEO_WORST, r['geo_plain_f64_max']):.3g}); to plain {r['geo_plain_mean']:.3g} "
+          f"({r['geo_plain_max']:.3g})", flush=True)
+    if broken:
+        fail(f"timbral_flat {label}: " + "; ".join(broken))
+    return r["abs"]
 
 
 def hold_flat_edge_cases(dev) -> None:
@@ -1057,7 +1026,7 @@ def hold_flat_edge_cases(dev) -> None:
         torch.cuda.synchronize()
         if got.shape != want.shape:
             fail(f"timbral_flat {label}: shape {tuple(got.shape)}, plain {tuple(want.shape)}")
-        hold_flat(got, want, f64_flat_rows(sig, nf), label)
+        hold_flat(got, want, label, sig, nf)
 
 
 def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int, card: str) -> None:
@@ -1074,6 +1043,7 @@ def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int,
         n_frames_strided,
     )
     from bliss_tpu_torch.routes import Routes
+    from bliss_tpu_torch.tables import default_tables
 
     b = x.shape[0]
     nf = int(n_frames_strided(tpad, 512, 128))
@@ -1086,12 +1056,15 @@ def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int,
     hold_ct_frames(frames, "8 x 5-min, framed route")
     del frames
 
-    # timbral_flat: [B, F, 5] (hold_flat), and the song-level flatness
+    # timbral_flat, called as the route calls it (the tables' window and
+    # twiddles): [B, F, 5] (hold_flat), and the song-level flatness
     # features of its rows against the plain rows' at 1e-5, as timbral_fft's
-    got = DK.timbral_flat(x, nf)
-    want = DK.timbral_flat_plain(x, nf)
+    tab = default_tables().on(x.device)
+    win, tw = tab["hann_512"], tab["twiddle_512"]
+    got = DK.timbral_flat(x, nf, win, tw)
+    want = DK.timbral_flat_plain(x, nf, win, tw)
     torch.cuda.synchronize()
-    flat_err = hold_flat(got, want, f64_flat_rows(x, nf), f"{b} x 5-min")
+    flat_err = hold_flat(got, want, f"{b} x 5-min", x, nf)
     mask = torch.arange(nf, device=x.device) < n_frames_strided(
         torch.as_tensor(lengths, device=x.device), 512, 128).unsqueeze(-1)
     c_g, ro_g, fl_g = frame_descriptors_from_raw(got)
@@ -1105,8 +1078,8 @@ def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int,
     record(
         "timbral_flat", "bliss_tpu_torch/csrc/timbral_flat.cu", "bliss_tpu/ops/pallas_dft.py:80",
         flat_err,
-        time_ms(lambda: DK.timbral_flat(x, nf), 10),
-        time_ms(lambda: DK.timbral_flat_plain(x, nf), 2),
+        time_ms(lambda: DK.timbral_flat(x, nf, win, tw), 10),
+        time_ms(lambda: DK.timbral_flat_plain(x, nf, win, tw), 2),
         x.numel() * 4 + b * nf * 5 * 4,
         b * nf * timbral_frame_ops(), None,
     )
@@ -1125,7 +1098,7 @@ def routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad: int,
     del a16, b16
     hold_flat_edge_cases(x.device)
     # the frame-level flatness ingredient of the two timbral kernels
-    gap = geo_gap(got, DK.timbral_fft(x, nf))
+    gap = DK.geo_gap(got, DK.timbral_fft(x, nf))
     print(f"  timbral_flat vs timbral_fft, per-frame geometric mean: max {gap.max().item():.3g}, "
           f"mean {gap.mean().item():.3g} (relative)", flush=True)
     del got, want, gap

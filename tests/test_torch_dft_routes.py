@@ -319,21 +319,10 @@ def test_cuda_timbral_flat_kernel_matches_plain(cuda):
     rng = np.random.default_rng(23)
     sig = torch.as_tensor((rng.normal(size=(3, 200000)) * 0.1).astype(np.float32), device=cuda)
     got, want = TD.timbral_flat(sig, 1501), TD.timbral_flat_plain(sig, 1501)
-    for c in (0, 1, 4):
-        assert ((got[..., c] - want[..., c]).abs() / want[..., c].abs().clamp(min=1e-30)).max() < 1e-5
-    assert (got[..., 2] - want[..., 2]).abs().max() <= 1
-    # the log2 sum against an f64 DFT of the same f32 windowed frames: the
-    # kernel within 1e-5 of it, or no farther than the plain version
-    from bliss_tpu_torch.ops.windows import _hann_np, frame_signal
-
-    frames = frame_signal(sig, 512, 128, 384, 1501) * torch.as_tensor(_hann_np(512), device=cuda)
-    m = torch.fft.rfft(frames.double(), dim=-1).abs()
-    exact = TD.timbral_rows(torch.cat([m[..., :255], m[..., 256:]], -1))
-
-    def geo(a):
-        return ((a[..., 3].double() - exact[..., 3]).abs() * np.log(2) / 256).max().item()
-
-    assert geo(got) <= max(1e-5, geo(want))
+    # the sums against the plain version, the log2 sum against an f64 DFT of
+    # the same f32 windowed frames, at the limits chip_smoke.py holds it to
+    readings, broken = TD.timbral_flat_held(got, want, TD.timbral_flat_f64(sig, 1501))
+    assert not broken, (broken, readings)
 
 
 @pytest.mark.cuda

@@ -159,6 +159,7 @@ def test_frame_dft_mags_kernel_is_an_fft():
     assert "six_products(" in _kernel_body(flat, "timbral_flat_kernel")
     assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in flat
     assert _device_body(flat, "six_products").count("wgmma_rs(") == 6
+    assert "#define BLISS_FLAT_PRODUCTS 6" in flat  # the bf16x3 control only on request
     assert "accumulate(" not in flat and "timbral_flat" not in text.replace("timbral_flat.cu", "")
     assert "tf32" not in flat.lower()
     note = text[: text.index("#include")]
