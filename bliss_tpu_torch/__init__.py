@@ -7,6 +7,10 @@ comes out, on an NVIDIA GPU through hand-written CUDA kernels (`csrc/`),
 or on the CPU through each kernel's plain PyTorch version when the caller
 asks for `device="cpu"`.
 
+Analyzed songs go into a SQLite `Library` (`library.py`), whose
+playlist queries run on one cached feature matrix on the same device
+(`playlist.py`).
+
 The package imports torch and numpy only; it keeps its own copies of the
 host-side constants it needs.
 """
@@ -23,13 +27,28 @@ from .errors import AnalysisError, BlissError, DecodingError, ProviderError  # n
 from .features import (  # noqa: E402
     NUMBER_FEATURES,
     SAMPLE_RATE,
+    VERSION2_WEIGHTS,
+    AnalysisIndex,
+    AnalysisIndexV1,
     FeaturesVersion,
 )
 from .song import Analysis, AnalysisOptions, CueInfo, Song  # noqa: E402
 
+
+def __getattr__(name):
+    """`Library`, `BaseConfig` and `LibrarySong`, imported on first use."""
+    if name in ("Library", "BaseConfig", "LibrarySong"):
+        from . import library
+
+        return getattr(library, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "Analysis",
     "AnalysisError",
+    "AnalysisIndex",
+    "AnalysisIndexV1",
     "AnalysisOptions",
     "BlissError",
     "CueInfo",
@@ -39,4 +58,5 @@ __all__ = [
     "ProviderError",
     "SAMPLE_RATE",
     "Song",
+    "VERSION2_WEIGHTS",
 ]

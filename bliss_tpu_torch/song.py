@@ -1,8 +1,9 @@
 """Analysis, AnalysisOptions and Song (counterpart of bliss_tpu/song.py):
 a versioned feature vector, the song record that carries it with its
 metadata, and the entry points that compute it from decoded samples on
-`device` (the card unless the caller asks for the CPU). Distances and
-playlists are not part of this package yet."""
+`device` (the card unless the caller asks for the CPU). The distance
+between two analyses is a scalar on the host, as in the JAX package;
+batched distances and playlists are in `playlist.py`."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 import numpy as np
 
 from .errors import ProviderError
-from .features import FeaturesVersion
+from .features import AnalysisIndex, AnalysisIndexV1, FeaturesVersion
 
 
 @dataclass
@@ -61,6 +62,15 @@ class Analysis:
         self._vec = vec
         self.features_version = features_version
 
+    @classmethod
+    def _unchecked(cls, vec: np.ndarray, features_version) -> "Analysis":
+        """Wrap a validated f32 row without conversion: the library's bulk
+        loader builds one per song of the cached matrix."""
+        self = cls.__new__(cls)
+        self._vec = vec
+        self.features_version = features_version
+        return self
+
     def as_vec(self) -> list:
         return [float(x) for x in self._vec]
 
@@ -68,7 +78,11 @@ class Analysis:
         return self._vec.copy()
 
     def __getitem__(self, index) -> float:
-        return float(self._vec[int(index)])
+        if isinstance(index, (AnalysisIndex, AnalysisIndexV1)):
+            if self.features_version != type(index).FEATURES_VERSION:
+                raise IndexError("Tried to index features with incompatible indexes")
+            return float(self._vec[int(index)])
+        return float(self._vec[index])
 
     def __eq__(self, other) -> bool:
         return (
@@ -78,7 +92,40 @@ class Analysis:
         )
 
     def __repr__(self) -> str:
-        return f"Analysis(version={int(self.features_version)}, {self.as_vec()})"
+        """The reference's `fmt::Debug` (src/song/mod.rs:294-324): named
+        fields, then the raw vector in a `/* [...] */` trailer, each float
+        in Rust's shortest round-trip f32 notation."""
+        raw = ", ".join(_f32_debug(x) for x in self._vec)
+        if len(self._vec) != self.features_version.feature_count:
+            return f"Analysis (Version ?) /* [{raw}] */"
+        names = (
+            AnalysisIndex
+            if self.features_version == FeaturesVersion.VERSION2
+            else AnalysisIndexV1
+        )
+        fields = ", ".join(
+            f"{_camel(name.name)}: {_f32_debug(self._vec[name.value])}" for name in names
+        )
+        return f"Analysis (Version {int(self.features_version)}) {{ {fields} }} /* [{raw}] */"
+
+    def distance(self, other: "Analysis") -> float:
+        """Distance by the version's default metric (src/song/mod.rs:364-370);
+        raises on mismatched versions."""
+        if self.features_version != other.features_version:
+            raise ProviderError("Mismatched features version between two songs or analysis")
+        metric = self.features_version.distance_metric()
+        return float(metric(self.as_arr1(), other.as_arr1()))
+
+
+def _f32_debug(x) -> str:
+    """Rust `{:?}` of an f32: the shortest decimal that round-trips, always
+    with a fractional part (1 -> "1.0")."""
+    return np.format_float_positional(np.float32(x), unique=True, trim="0")
+
+
+def _camel(name: str) -> str:
+    """TEMPO -> Tempo, MEAN_SPECTRAL_CENTROID -> MeanSpectralCentroid."""
+    return "".join(part.capitalize() for part in name.split("_"))
 
 
 @dataclass
@@ -124,3 +171,11 @@ class Song:
         """Like `analyze`, with the options' features version
         (src/song/mod.rs:412-508)."""
         return Song.analyze(sample_array, analysis_options.features_version, device)
+
+    def distance(self, other: "Song") -> float:
+        """Distance of the two songs' analyses (src/song/mod.rs:193-201)."""
+        if self.analysis is None or other.analysis is None:
+            raise ProviderError(
+                "tried to compute the distance of a song that has not been analyzed"
+            )
+        return self.analysis.distance(other.analysis)

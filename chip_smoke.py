@@ -88,7 +88,26 @@
    and the bucketed route's time by stage, holds a 21-minute song's
    sharded vector against the CPU f64 path (<= 2e-2, same dominant
    chroma), and runs `analyze_paths_batched` over that song as a WAV file
-   with `longsong_samples` set, equal to the bucketed result at 2e-5.
+   with `longsong_samples` set, equal to the bucketed result at 2e-5;
+11. library: a 100k-song Version2 SQLite store written through the port's
+   `Library` (features uniform(-1, 1) from `--seed`, 1% of the rows an
+   exact copy of another's features, 0.1% repeating their predecessor's
+   title and artist); `playlist_from` cold (SQLite load and the 100k
+   `LibrarySong`s apart from the upload and the device query) and warm
+   over 9 seeds, `playlist_from_custom(closest_to_songs, dedup)` with the
+   V2 Mahalanobis metric and with cosine, each query held against the
+   same store opened with `device="cpu"` (the order before dedup, its
+   verdicts and the playlist equal, each position's f64 distance within
+   1e-5); `song_to_song`
+   over the whole store (p50 of 2; the CUDA-graph walk equal to the eager
+   step loop on the card index for index, its first 2,000 picks within
+   1e-5 of the f64 minimum over the live rows, and how many steps the
+   card's and the CPU's walks agree for); `album_playlist_from` against
+   the CPU route; then `update_library` on piano.flac,
+   s16_mono_22_5kHz.flac and testcue.cue (the path's kernels must launch,
+   the stored vectors within 1e-4 of the files phase's, the CUE's missing
+   file among the failed songs) and `playlist_from` on one of them; peak
+   device memory.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, then the
 result line. Any failed phase exits non-zero. Imports nothing of JAX.
@@ -711,10 +730,10 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     return batch[0, :n].copy()
 
 
-def files_phase(corpus: str, card: str) -> None:
+def files_phase(corpus: str, card: str) -> dict:
     """Files to features on the card through the batch driver, timed with
     and without decoding, held against the port's CPU f64 path on the
-    same decoded samples."""
+    same decoded samples. Returns the card's results by path."""
     from bliss_tpu_torch.io.batch import analyze_paths_batched
     from bliss_tpu_torch.io.fallback import FallbackDecoder
     from bliss_tpu_torch.song import Song
@@ -814,6 +833,7 @@ def files_phase(corpus: str, card: str) -> None:
     if failures:
         fail("files phase: " + "; ".join(failures))
     flat_audit(decoded, gpu, cpu)
+    return gpu
 
 
 def flat_audit(decoded: dict, gpu: dict, cpu: dict) -> None:
@@ -1343,6 +1363,306 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
         fail(f"long-song file route: routed vs bucketed {d:.3g} > 2e-5")
 
 
+
+# ---------------------------------------------------------------------------
+# the library and its playlists
+# ---------------------------------------------------------------------------
+
+#: The library phase's size: BASELINE.json's playlist configuration.
+LIBRARY_SONGS = 100_000
+LIBRARY_SEEDS = 9
+
+
+def build_library(folder: pathlib.Path, seed: int):
+    """A 100k-song Version2 SQLite store written through the port's
+    `Library` (benches/playlist_bench.py's rows): features uniform(-1, 1)
+    from `seed`, 1% of the rows an exact copy of another row's features,
+    0.1% repeating their predecessor's (title, artist). Returns the config
+    and each row's feature-vector group (equal vectors, equal group)."""
+    from bliss_tpu_torch.library import BaseConfig, Library
+
+    n = LIBRARY_SONGS
+    rng = np.random.default_rng(seed)
+    feats = rng.uniform(-1.0, 1.0, size=(n, 23)).astype(np.float32)
+    copies = rng.choice(n, n // 100, replace=False)
+    feats[copies] = feats[(copies + rng.integers(1, n, copies.shape[0])) % n]
+    titles = [f"title {i}" for i in range(n)]
+    artists = [f"artist {i % 997}" for i in range(n)]
+    for i in rng.choice(np.arange(1, n), n // 1000, replace=False):
+        titles[i], artists[i] = titles[i - 1], artists[i - 1]
+    config = BaseConfig(config_path=folder / "config.json", database_path=folder / "songs.db")
+    lib = Library(config, device="cuda")
+    conn = lib.sqlite_conn
+    conn.execute("begin")
+    conn.executemany(
+        "insert into song (path, artist, title, album, duration, analyzed, version, extra_info)"
+        " values (?,?,?,?,?,?,?,?)",
+        ((f"/library/{i // 1000:03d}/song_{i:06d}.flac", artists[i], titles[i],
+          f"album {i // 12}", 210.0, True, 2, "null") for i in range(n)),
+    )
+    ids = [r[0] for r in conn.execute("select id from song order by id")]
+    conn.executemany(
+        "insert into feature (song_id, feature, feature_index) values (?,?,?)",
+        ((ids[i], float(feats[i, j]), j) for i in range(n) for j in range(23)),
+    )
+    conn.commit()
+    lib.config.write()
+    _, group = np.unique(feats, axis=0, return_inverse=True)
+    return config, group.ravel()
+
+
+def f64_seed_distances(mat: torch.Tensor, seed_rows, kind: str, m=None) -> np.ndarray:
+    """Each row's f64 distance to the seed rows, summed over the seeds."""
+    x = mat.double()
+    out = torch.zeros(x.shape[0], dtype=torch.float64, device=x.device)
+    for r in seed_rows:
+        s = x[r]
+        if kind == "cosine":
+            out += 1.0 - (x @ s) / (x.norm(dim=1) * s.norm())
+        else:
+            d = x - s
+            out += torch.sqrt(((d @ torch.as_tensor(m, dtype=torch.float64, device=x.device)) * d).sum(1))
+    return out.cpu().numpy()
+
+
+def hold_query(label, lib, cpu_lib, path, distance, d64, failures) -> int:
+    """One query on the card against the CPU route over the same store.
+    Both sum each distance in one order and round each square root once,
+    so the order before dedup (`_fused_order_dedup`), its verdicts and the
+    playlist must be equal; at each position the two orders' f64
+    distances within 1e-5 (relative), and the card's order must not step
+    back by more than that in f64. Returns the card's verdict count."""
+    from bliss_tpu_torch import playlist as P
+
+    index = lib._matrix_cache.path_index
+    initial = [lib.song_from_path(path)]
+    mask = np.ones(lib._matrix_cache.n, bool)
+    mask[index[path]] = False
+    go, gs = lib._fused_order_dedup(initial, distance, mask)
+    co, cs = cpu_lib._fused_order_dedup(initial, distance, mask)
+    if len(go) != len(co) or set(go.tolist()) != set(co.tolist()):
+        failures.append(f"{label}: the card's and the CPU's orders hold other rows")
+        return int(gs.sum())
+    if not np.array_equal(go, co) or not np.array_equal(gs, cs):
+        failures.append(f"{label}: the order differs at {int((go != co).sum())} positions, "
+                        f"the verdicts at {int((gs != cs).sum())}")
+    a, b = d64[go], d64[co]
+    if (np.abs(a - b) > 1e-5 * np.maximum(np.abs(a), np.abs(b))).any():
+        failures.append(f"{label}: positions apart by more than 1e-5 in f64")
+    if (a[:-1] - a[1:] > 1e-5 * np.abs(a[:-1])).any():
+        failures.append(f"{label}: the card's order steps back by more than 1e-5 in f64")
+    got = lib.playlist_from_custom([path], distance, P.closest_to_songs, True)
+    want = cpu_lib.playlist_from_custom([path], distance, P.closest_to_songs, True)
+    if [str(s.bliss_song.path) for s in got] != [str(s.bliss_song.path) for s in want]:
+        failures.append(f"{label}: the playlists differ ({len(got)} songs on the card, "
+                        f"{len(want)} on the CPU)")
+    return int(gs.sum())
+
+
+def hold_chain(lib, rows, failures, check_steps: int = 2000) -> str:
+    """The song_to_song walk the query returned (`rows`: the first pick,
+    then the chain) against the eager step loop on the card, index for
+    index; its first `check_steps` picks against the f64 minimum over the
+    rows still live; and the CPU's eager loop over as many steps."""
+    from bliss_tpu_torch import playlist as P
+
+    x = lib._device_matrix()
+    rows_t = torch.as_tensor(rows, device=x.device)
+    first, chain = rows[0], rows_t[1:]
+    live = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    live[rows_t] = True
+    live[first] = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = P._greedy_chain_plain(x, first, P.euclidean_distance, live.clone(), len(rows) - 1)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if not torch.equal(eager, chain):
+        k = int((eager != chain).nonzero()[0])
+        failures.append(f"song_to_song: the graph chain leaves the eager loop at step {k}")
+    # f64 minimum over the live rows, a block of steps at a time
+    pos = torch.full((x.shape[0],), -1, dtype=torch.int64, device=x.device)
+    pos[rows_t] = torch.arange(len(rows), device=x.device)
+    x64 = x.double()
+    worst = 0.0
+    steps = min(check_steps, len(rows) - 1)
+    for start in range(1, steps + 1, 250):
+        t = torch.arange(start, min(start + 250, steps + 1), device=x.device)
+        d = torch.cdist(x64[rows_t[t - 1]], x64, compute_mode="donot_use_mm_for_euclid_dist")
+        d = torch.where(pos[None, :] >= t[:, None], d, torch.inf)
+        best = d.min(1).values
+        picked = d.gather(1, rows_t[t][:, None])[:, 0]
+        rel = ((picked - best) / best.clamp_min(1e-300)).max().item()
+        worst = max(worst, rel)
+    if worst > 1e-5:
+        failures.append(f"song_to_song: a pick {worst:.3g} above the f64 minimum (limit 1e-5)")
+    cpu = P._greedy_chain_plain(x.cpu(), first, P.euclidean_distance, live.cpu(), steps)
+    differ = (cpu != chain[:steps].cpu()).nonzero()
+    agree = steps if len(differ) == 0 else int(differ[0])
+    return (f"graph == eager loop over {len(rows) - 1} steps (eager {eager_s:.2f} s); first "
+            f"{steps} picks within {worst:.3g} of the f64 minimum; card and CPU chains agree "
+            f"for the first {agree} of {steps} steps")
+
+
+def library_phase(seed: int, card: str, files: dict) -> None:
+    """The playlist engine and the SQLite Library on the card at a 100k-song
+    store (BASELINE.json's playlist configuration), each query held
+    against the same store opened with device="cpu"; then the user's round
+    trip `update_library` -> `playlist_from` on three fixture files."""
+    import gc
+    import shutil
+
+    from bliss_tpu_torch import playlist as P
+    from bliss_tpu_torch.features import FeaturesVersion
+    from bliss_tpu_torch.library import BaseConfig, Library
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.song import Song
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    folder = REPO / "tmp" / "smoke_library"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    failures: list = []
+    try:
+        t0 = time.perf_counter()
+        config, group = build_library(folder, seed)
+        build_s = time.perf_counter() - t0
+        paths = [f"/library/{i // 1000:03d}/song_{i:06d}.flac" for i in range(LIBRARY_SONGS)]
+        seeds = [paths[int(i)] for i in np.random.default_rng(seed + 1).choice(
+            LIBRARY_SONGS, LIBRARY_SEEDS, replace=False)]
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # cold: SQLite load, 100k LibrarySongs, upload, query; then the
+        # host load and the upload alone, on the cache dropped and built again
+        lib = Library(BaseConfig.from_path(config.config_path), device="cuda")
+        cold_s = timed(lambda: lib.playlist_from([seeds[0]]))[1]  # no song kept alive
+        lib._invalidate_matrix_cache()
+        gc.collect()
+        _, load_s = timed(lib._cached_library)
+        _, upload_s = timed(lib._device_matrix)
+        cpu_lib = Library(BaseConfig.from_path(config.config_path), device="cpu")
+        cpu_lib._cached_library()
+        initial = [lib.song_from_path(seeds[0])]
+        mask = np.ones(LIBRARY_SONGS, bool)
+        mask[lib._matrix_cache.path_index[seeds[0]]] = False
+        fused, device_s = timed(lambda: lib._fused_order_dedup(initial, P.euclidean_distance, mask))
+        _, walk_s = timed(lambda: lib._materialize_deduped(
+            initial, P.euclidean_distance, fused, lib._matrix_cache.songs))
+        print(f"library: {LIBRARY_SONGS} songs x 23 features written in {build_s:.2f} s; cold "
+              f"playlist_from {cold_s:.3f} s, of it on the host SQLite + {LIBRARY_SONGS} "
+              f"LibrarySongs {load_s:.3f} s, upload {upload_s * 1e3:.2f} ms; a warm query: "
+              f"device order + dedup verdicts {device_s * 1e3:.2f} ms, host dedup walk + "
+              f"playlist {walk_s * 1e3:.2f} ms [{card}]", flush=True)
+
+        dev = lib._device_matrix()
+        index = lib._matrix_cache.path_index
+        # exact f32 ties between unrelated rows' seed distances: a tie inside
+        # an exact-copy pair's index range splits the pair in the stable
+        # order, so a route that rounded a distance otherwise would dedup
+        # otherwise
+        i0 = index[seeds[0]]
+        d32 = P._batched_mahalanobis(dev, dev[i0 : i0 + 1], torch.eye(23, device=dev.device))
+        d32 = d32[: lib._matrix_cache.n].cpu().numpy()
+        by = np.lexsort((group, d32))
+        ties = int(((d32[by][1:] == d32[by][:-1]) & (group[by][1:] != group[by][:-1])).sum())
+        print(f"  f32 euclidean distances to {seeds[0]} on the card: {ties} equal pairs of rows "
+              "with unequal vectors (adjacent in a sort by distance)", flush=True)
+        queries = [
+            ("playlist_from", P.euclidean_distance, "mahalanobis", np.eye(23)),
+            ("mahalanobis (V2)", FeaturesVersion.VERSION2.distance_metric(), "mahalanobis",
+             FeaturesVersion.VERSION2.feature_weights()),
+            ("cosine", P.cosine_distance, "cosine", None),
+        ]
+        for label, distance, kind, m in queries:
+            times, kept, verdicts = [], [], []
+            for path in seeds:
+                got, s = timed(lambda: lib.playlist_from_custom(
+                    [path], distance, P.closest_to_songs, True))
+                times.append(s)
+                kept.append(len(got))
+                d64 = f64_seed_distances(dev, [index[path]], kind, m)
+                verdicts.append(hold_query(f"{label} from {path}", lib, cpu_lib, path, distance,
+                                           d64, failures))
+            print(f"  {label}: p50 {np.median(times) * 1e3:.2f} ms over {len(times)} seeds (min "
+                  f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); {min(kept)}-{max(kept)} "
+                  f"songs kept, {min(verdicts)}-{max(verdicts)} dedup verdicts a query; order, "
+                  f"verdicts and playlist equal to the CPU route's [{card}]", flush=True)
+
+        times, rows = [], None
+        for path in seeds[:2]:
+            got, s = timed(lambda: lib.playlist_from_custom(
+                [path], P.euclidean_distance, P.song_to_song, False))
+            times.append(s)
+            if rows is None:
+                rows = [index[str(x.bliss_song.path)] for x in got[1:]]
+                if len(got) != LIBRARY_SONGS or len(set(rows)) != LIBRARY_SONGS - 1:
+                    failures.append(f"song_to_song: {len(got)} songs, {len(set(rows))} distinct")
+        chain_note = hold_chain(lib, rows, failures)
+        print(f"  song_to_song (euclidean, no dedup): p50 {np.median(times):.3f} s over "
+              f"{len(times)} seeds ({', '.join(f'{t:.3f}' for t in times)}); {chain_note} "
+              f"[{card}]", flush=True)
+
+        album = f"album {LIBRARY_SONGS // 24}"
+        got, album_s = timed(lambda: lib.album_playlist_from(album, 3))
+        want = cpu_lib.album_playlist_from(album, 3)
+        if [str(s.bliss_song.path) for s in got] != [str(s.bliss_song.path) for s in want]:
+            failures.append("album_playlist_from: the card's playlist differs from the CPU's")
+        print(f"  album_playlist_from({album!r}, 3): {len(got)} songs in {album_s:.3f} s, "
+              f"equal to the CPU route's", flush=True)
+        del lib, cpu_lib, dev
+
+        # the user's round trip: update_library on files, then a playlist
+        trip = [DATA / "piano.flac", DATA / "s16_mono_22_5kHz.flac", DATA / "testcue.cue"]
+        user = Library(BaseConfig(config_path=folder / "user" / "config.json",
+                                  database_path=folder / "user" / "songs.db"), device="cuda")
+        _build.reset_launches()
+        _, update_s = timed(lambda: user.update_library(trip))
+        launches = dict(_build.LAUNCHES)
+        path_kernels = ("timbral_fft", "specflux", "ct_stft") + FUSED_ROUTE
+        if any(launches.get(k, 0) < 1 for k in path_kernels):
+            failures.append(f"update_library did not launch every kernel of the path: {launches}")
+        stored = user.songs_from_library()
+        worst = 0.0
+        for s in stored:
+            key = str(s.bliss_song.path)
+            ref = files.get(key)
+            if not isinstance(ref, Song):
+                failures.append(f"round trip: {key} has no vector from the files phase")
+                continue
+            worst = max(worst, float(np.abs(s.bliss_song.analysis.as_arr1()
+                                            - ref.analysis.as_arr1()).max()))
+        if len(stored) != 5 or worst > 1e-4:
+            failures.append(f"round trip: {len(stored)} songs stored, {worst:.3g} from the "
+                            "files phase's vectors (limit 1e-4)")
+        failed = [str(f.song_path) for f in user.get_failed_songs()]
+        if failed != [str(DATA / "testcue.cue")]:
+            failures.append(f"round trip: failed songs {failed}")
+        playlist, pl_s = timed(lambda: user.playlist_from([str(trip[0])]))
+        if str(playlist[0].bliss_song.path) != str(trip[0]) or not all(
+            np.isfinite(s.bliss_song.analysis.as_arr1()).all() for s in playlist
+        ):
+            failures.append("round trip: playlist_from does not start at its seed")
+        print(f"  update_library on piano.flac, s16_mono_22_5kHz.flac, testcue.cue: "
+              f"{update_s:.2f} s, {len(stored)} songs within {worst:.3g} of the files phase, "
+              f"failed {[pathlib.Path(p).name for p in failed]}, launches {launches}; "
+              f"playlist_from {pl_s * 1e3:.2f} ms -> {len(playlist)} songs", flush=True)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"  library phase: {time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({base_gb:.3f} GB held before "
+          f"the phase) [{card}]", flush=True)
+    if failures:
+        fail("library phase: " + "; ".join(failures))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1564,7 +1884,10 @@ def main() -> None:
     del song21
 
     # ---- files -----------------------------------------------------------
-    files_phase(args.corpus, card)
+    files = files_phase(args.corpus, card)
+
+    # ---- the library and its playlists -----------------------------------
+    library_phase(args.seed, card, files)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": list(results.values())}))

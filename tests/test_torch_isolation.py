@@ -43,6 +43,8 @@ def test_scan_covers_every_package_of_the_port():
         "bliss_tpu_torch/routes.py",
         "bliss_tpu_torch/io/batch.py",
         "bliss_tpu_torch/ops/dft_kernels.py",
+        "bliss_tpu_torch/playlist.py",
+        "bliss_tpu_torch/library.py",
     ):
         assert rel in scanned
     for init in (REPO / "bliss_tpu_torch").rglob("__init__.py"):
@@ -54,10 +56,30 @@ def test_forbidden_rule():
     assert not _forbidden("bliss_tpu_torch.ops") and not _forbidden("torch")
 
 
+#: The only environment the port reads: the reference's config location
+#: (XDG folders, src/library.rs:287-326), in library.py.
+XDG_READS = {
+    'os.environ.get("XDG_CONFIG_HOME")',
+    'os.environ.get("XDG_DATA_HOME")',
+}
+
+
 def test_no_environment_switches():
-    """No environment variable turns a kernel off or picks a path."""
+    """No environment variable turns a kernel off or picks a path: the
+    only reads of the environment are library.py's XDG folders."""
     for path in PORT_FILES:
-        assert "environ" not in path.read_text(), path
+        text = path.read_text()
+        if path.name == "library.py":
+            reads = set(re.findall(r"os\.environ\.get\([^)]*\)", text))
+            assert reads == XDG_READS, reads
+            text = re.sub(r"os\.environ\.get\(\"XDG_(CONFIG|DATA)_HOME\"\)", "", text)
+        assert "environ" not in text and "getenv" not in text, path
+
+
+def test_no_bliss_variables():
+    """No module of the port names an environment variable `BLISS_*`."""
+    for path in PORT_FILES:
+        assert not re.search(r"[\"']BLISS_", path.read_text()), path
 
 
 @pytest.mark.parametrize(
