@@ -4,12 +4,13 @@ beat tracker).
 
 The per-hop stages are batched over `[B, H]`: the SpecFlux onset (one
 kernel launch, `ops/dft_kernels.specflux`), the adaptive threshold and the
-silence gates. The beat tracker's hypothesis machine is sequential over
-blocks of 128 hops; the JAX package's `lax.scan` becomes a Python loop
-over blocks whose state carries a batch axis `[B]`, with every data
-dependent branch written as a `torch.where`, so the loop issues the same
-work for every song; it reads one flag per block back to the host (does
-any song need the rare catch-up additions of the beat phase).
+silence gates. The beat tracker runs in three parts, as the JAX package's
+`lax.scan` splits its carry from its outputs: the per-block quantities
+that do not depend on the hypothesis state, batched over `[B, NB]`
+(`_precompute_blocks`); the sequential state machine over blocks of 128
+hops (`ops/tempo_kernels.beat_track`: one kernel launch on the card, a
+loop over blocks on the CPU); and the per-beat firing and the median BPM,
+batched over `[B, NB, 8]` (`_tempo_from_beats`), which feed nothing back.
 """
 
 from __future__ import annotations
@@ -27,6 +28,13 @@ from ..ops.dft_kernels import (  # noqa: F401 (re-export)
     specflux,
 )
 from ..ops.reductions import masked_quantile_midpoint, normalize_range
+from ..ops.tempo_kernels import (  # noqa: F401 (re-export)
+    G_VAR,
+    _double_slow_tempi,
+    _quad_peak_pos,
+    _vec_max_elem,
+    beat_track,
+)
 from ..ops.windows import frame_signal, n_frames_strided
 from ..tables import beat_weights, bt_rayparam, tempo_geometry
 
@@ -41,10 +49,6 @@ _BIQUAD = tuple(
     float(np.float32(v)) for v in (0.1599879, 0.31997577, 0.1599879, 0.23484048, 0.0)
 )
 _BUF = 7  # win_post(5) + win_pre(1) + 1
-
-_MAX_BEATS = 8  # beats per cycle <= step/min_bp + 2 = 7
-_MAX_KMAX = 21  # kmax = floor(winlen / bp) <= floor(512 / 25) = 20
-_MAX_PHASE_I = 160  # beat-phase loop bound: i < bp <= ~130
 
 
 class _BTConstants(NamedTuple):
@@ -65,7 +69,7 @@ def _bt_constants(device, tables: dict | None = None, sample_rate: int = 22050):
         rwv, dfwv = (torch.as_tensor(a, device=device) for a in beat_weights(sample_rate))
     else:
         rwv, dfwv = tables["bt_rwv"], tables["bt_dfwv"]
-    g = np.float32(3.901)
+    g = np.float32(G_VAR)
     return _BTConstants(
         winlen, step, winlen // 4, bt_rayparam(sample_rate)[1], rwv, dfwv,
         float(g), float(g * g),
@@ -126,27 +130,8 @@ def silence_flags_blocked(signal: torch.Tensor, h_max: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Beat tracking helpers, batched over leading axes
+# Beat tracking: the block inputs, the state machine, the firing
 # ---------------------------------------------------------------------------
-
-
-def _vec_max_elem(data: torch.Tensor) -> torch.Tensor:
-    """aubio fvec_max_elem over the last axis: last occurrence of the max,
-    0 when every value is negative (src/aubio.rs:787-799)."""
-    n = data.shape[-1]
-    last_arg = (n - 1) - torch.argmax(data.flip(-1), dim=-1)
-    return torch.where(data.amax(-1) >= 0.0, last_arg, 0)
-
-
-def _quad_peak_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """vec_quadratic_peak_pos (src/aubio.rs:576-604) at per-row `pos`."""
-    n = x.shape[-1]
-    posc = torch.clamp(pos, 1, n - 2).unsqueeze(-1)
-    s0 = torch.gather(x, -1, posc - 1).squeeze(-1)
-    s1 = torch.gather(x, -1, posc).squeeze(-1)
-    s2 = torch.gather(x, -1, posc + 1).squeeze(-1)
-    interp = posc.squeeze(-1).to(torch.float32) + 0.5 * (s0 - s2) / (s0 - 2.0 * s1 + s2)
-    return torch.where((pos == 0) | (pos >= n - 1), pos.to(torch.float32), interp)
 
 
 def _autocorr(df: torch.Tensor, chunk: int = 256) -> torch.Tensor:
@@ -252,164 +237,64 @@ def _precompute_blocks(thresh_masked: torch.Tensor, n_blocks: int, consts: _BTCo
     }
 
 
-def initial_beat_state(batch: int, consts: _BTConstants, device) -> dict:
-    f32 = torch.float32
-
-    def full(value, dtype=f32):
-        return torch.full((batch,), value, dtype=dtype, device=device)
-
-    return {
-        "gwv": torch.zeros((batch, consts.laglen), dtype=f32, device=device),
-        "phwv": torch.ones((batch, 2 * consts.laglen), dtype=f32, device=device),
-        "timesig": full(0, torch.int32),
-        "counter": full(0, torch.int32),
-        "flagstep": full(0, torch.int32),
-        "gp": full(0.0),
-        "bp": full(0.0),
-        "rp": full(1.0),
-        "rp1": full(0.0),
-        "rp2": full(0.0),
-        "lastbeat": full(0.0),
-    }
-
-
-def _double_slow_tempi(bp: torch.Tensor) -> torch.Tensor:
-    """`while 0 < bp < 25: bp *= 2` (src/aubio.rs:1216-1218), capped at 32
-    doublings like the JAX package's unrolled loop. Doubling is exact, so
-    the result is bp * 2^k with k the smallest count reaching 25: with
-    bp = m * 2^e, m in [0.5, 1), k = 5 - e if m >= 25/32 else 6 - e."""
-    m, e = torch.frexp(bp)
-    k = torch.where(m >= 0.78125, 5 - e, 6 - e)
-    k = torch.clamp(k, 0, 32)
-    scale = ((k + 127) << 23).to(torch.int32).view(torch.float32)  # exactly 2^k
-    return torch.where((bp > 0.0) & (bp < 25.0), bp * scale, bp)
-
-
-def _checkstate(state: dict, xs: dict, rp: torch.Tensor, consts: _BTConstants) -> dict:
-    """BeatTracking::checkstate (src/aubio.rs:1096-1227), per song."""
-    laglen = consts.laglen
-    step = float(consts.step)
-    g_var = consts.g_var
-    sel3 = state["timesig"] == 3
-
-    comb_u = torch.where((state["timesig"] == 4).unsqueeze(-1), xs["comb_u4"], xs["comb_u3"])
-    acfout = comb_u * state["gwv"]
-    gp_cand = _quad_peak_pos(acfout, _vec_max_elem(acfout))
-    gp = torch.where(state["gp"] > 0.0, gp_cand, 0.0)
-
-    at_zero = state["counter"] == 0
-    step_change = torch.abs(gp - rp) > float(np.float32(2.0) * np.float32(g_var))
-    flagstep = torch.where(at_zero, step_change.to(torch.int32), state["flagstep"])
-    counter = torch.where(at_zero & step_change, 3, state["counter"]).to(torch.int32)
-
-    check = (counter == 1) & (flagstep == 1)
-    consistent = torch.abs(2.0 * rp - state["rp1"] - state["rp2"]) < g_var
-    flagconst = check & consistent
-    counter = torch.where(
-        check,
-        torch.where(consistent, 0, 2),
-        torch.where(counter > 0, counter - 1, counter),
-    ).to(torch.int32)
-
-    j2 = torch.arange(2 * laglen, dtype=torch.float32, device=rp.device)
-    timesig_c = torch.where(sel3, xs["ts_if3"], xs["ts_if4"])
-    gwv_c = torch.where(sel3.unsqueeze(-1), xs["gwv_if3"], xs["gwv_if4"])
-
-    # context-dependent model: phase weights around the last beat
-    lastbeat = state["lastbeat"].unsqueeze(-1)
-    d2 = 1.0 + j2 - step + lastbeat
-    phwv_ctx = torch.where(
-        step > lastbeat,
-        torch.exp(-0.5 * d2 * d2 / (gp.unsqueeze(-1) / 8.0)),
-        1.0,
+def beat_track_inputs(thresh: torch.Tensor, h_valid: torch.Tensor, consts: _BTConstants):
+    """The state machine's inputs from the thresholded novelty `thresh
+    [B, H]` (hops >= `h_valid [B]` masked): the block inputs `[B, NB, ...]`
+    and each song's count of valid blocks, int32 `[B]`. Block k runs at
+    hop 127 + 128 k, valid while that hop is below `h_valid`, so the valid
+    blocks are the first `h_valid // 128`."""
+    step = consts.step
+    batch, h_max = thresh.shape
+    dev = thresh.device
+    n_blocks = (h_max - step) // step + 1
+    h_valid = torch.as_tensor(h_valid, device=dev)
+    thresh_masked = torch.where(
+        torch.arange(h_max, device=dev) < h_valid.unsqueeze(-1), thresh, 0.0
     )
-    use_ctx = (~flagconst) & (state["timesig"] > 0)
-
-    bp = torch.where(flagconst, rp, torch.where(use_ctx, gp, rp))
-    flag2 = flagconst.unsqueeze(-1)
-    phwv = torch.where(flag2, 1.0, torch.where(use_ctx.unsqueeze(-1), phwv_ctx, 1.0))
-    return {
-        "gwv": torch.where(flag2, gwv_c, state["gwv"]),
-        "phwv": phwv,
-        "timesig": torch.where(flagconst, timesig_c, state["timesig"]).to(torch.int32),
-        "counter": counter,
-        "flagstep": flagstep.to(torch.int32),
-        "gp": torch.where(flagconst, rp, gp),
-        "bp": _double_slow_tempi(bp),
-        "rp": rp,
-        "rp1": rp,
-        "rp2": state["rp1"],
-        "lastbeat": state["lastbeat"],
-    }
+    blocks = _precompute_blocks(thresh_masked, n_blocks, consts)
+    n_valid = torch.clamp(h_valid // step, 0, n_blocks).to(torch.int32)
+    return blocks, n_valid
 
 
-def _bt_do(state: dict, xs: dict, consts: _BTConstants):
-    """BeatTracking::do_ (src/aubio.rs:966-1092) for one block of every song.
-    Returns (new_state, beats [B, 8], fired [B, 8])."""
-    winlen, step = consts.winlen, float(consts.step)
-    rp = torch.where(state["timesig"] == 3, xs["rp_if3"], xs["rp_if4"])
-    state = _checkstate(state, xs, rp, consts)
-    bp_raw = state["bp"]
-    has_beats = bp_raw != 0.0
-    bp = torch.where(has_beats, bp_raw, 1.0)  # keep the unused lanes finite
+def _tempo_from_beats(
+    bp: torch.Tensor,
+    beats: torch.Tensor,
+    fired: torch.Tensor,
+    silent: torch.Tensor,
+    h_valid: torch.Tensor,
+    step: int,
+    sample_rate: int = 22050,
+) -> torch.Tensor:
+    """Median BPM `[B]` from the state machine's outputs (`bp [B, NB]`,
+    `beats` and `fired [B, NB, 8]`): a beat fires at hop hk + floor(beat)
+    when that hop is in its block, valid and not silent, and frac > 0
+    (src/aubio.rs:1419-1438, src/temporal.rs:50-57); -1 without one."""
+    batch, h_max = silent.shape
     dev = bp.device
-    batch = bp.shape[0]
-
-    # beat phase (src/aubio.rs:1017-1091)
-    kmax = torch.floor(winlen / bp).to(torch.int32)
-    k_idx = torch.arange(_MAX_KMAX, device=dev)
-    i_idx = torch.arange(_MAX_PHASE_I, device=dev)
-    # ROUND(x) = floor(x + 0.5) (src/aubio.rs:1038-1039)
-    offs = torch.floor(bp.unsqueeze(-1) * k_idx.to(torch.float32) + 0.5).to(torch.int64)
-    # phout[i] = sum over k of dfrev[i + offs_k], for i < bp, k < kmax,
-    # i + offs_k < winlen
-    idx = i_idx.view(1, -1, 1) + offs.unsqueeze(1)  # [B, I, K]
-    ok = (
-        (i_idx.to(torch.float32).view(1, -1, 1) < bp.view(-1, 1, 1))
-        & (k_idx.view(1, 1, -1) < kmax.view(-1, 1, 1))
-        & (idx < winlen)
+    h_valid = torch.as_tensor(h_valid, device=dev)
+    pad_silent = torch.cat(
+        [silent, torch.ones((batch, step), dtype=torch.bool, device=dev)], dim=1
     )
-    vals = torch.gather(
-        xs["dfrev"], 1, torch.clamp(idx, 0, winlen - 1).reshape(batch, -1)
-    ).reshape(idx.shape)
-    phout_head = torch.where(ok, vals, 0.0).sum(-1)
-    phout = torch.nn.functional.pad(phout_head, (0, winlen - _MAX_PHASE_I))
-    n_w = state["phwv"].shape[-1]  # vec_weight covers min(len, 2*laglen)
-    phout = torch.cat([phout[:, :n_w] * state["phwv"], phout[:, n_w:]], dim=-1)
-    maxindex = _vec_max_elem(phout)
-    lastbeat = state["lastbeat"]
-    phase = torch.where(
-        maxindex >= winlen - 1, step - lastbeat, _quad_peak_pos(phout, maxindex)
+    hk = (step - 1) + step * torch.arange(bp.shape[1], device=dev).view(1, -1, 1)
+    # 60 sr / (256 bp) rounded once, as the JAX package divides: a Python
+    # number over a tensor is PyTorch's reciprocal-then-product, two roundings
+    bpm = torch.where(
+        bp != 0.0, torch.full_like(bp, 60.0 * sample_rate) / (float(HOP_SIZE) * bp), 0.0
     )
-    phase = phase + 1.0
-
-    beat = bp - phase
-    skip = (step - lastbeat - phase) < (-0.40 * bp)
-    beat = torch.where(skip, beat + bp, beat)
-    # while beat + bp < 0: beat += bp (at most 21 additions for bp >= 25,
-    # phase <= 513; the same 24-step bound as the JAX package)
-    for _ in range(24):
-        behind = (beat + bp < 0.0) & has_beats
-        if not bool(behind.any()):
-            break
-        beat = torch.where(behind, beat + bp, beat)
-
-    # emit: the first beat if beat >= 0, then while beat + bp <= step
-    vals_out, fires = [], []
-    first_fire = beat >= 0.0
-    vals_out.append(beat)
-    fires.append(first_fire)
-    for _ in range(_MAX_BEATS - 1):
-        more = beat + bp <= step
-        beat = torch.where(more, beat + bp, beat)
-        vals_out.append(beat)
-        fires.append(more)
-    beats = torch.stack(vals_out, dim=-1)
-    fired = torch.stack(fires, dim=-1) & has_beats.unsqueeze(-1)
-    beats = torch.where(has_beats.unsqueeze(-1), beats, 0.0)
-    # lastbeat is the final `beat` whether or not anything was emitted
-    state["lastbeat"] = torch.where(has_beats, beat, lastbeat)
-    return state, beats, fired
+    beat_floor = torch.floor(beats)
+    frac = beats - beat_floor
+    hop_of_beat = hk + beat_floor.to(torch.int64)  # [B, NB, 8]
+    in_block = (beat_floor >= 0) & (beat_floor < step)
+    hop_ok = hop_of_beat < h_valid.view(-1, 1, 1)
+    not_silent = ~torch.gather(
+        pad_silent, 1, torch.clamp(hop_of_beat, 0, h_max + step - 1).reshape(batch, -1)
+    ).reshape(hop_of_beat.shape)
+    fire = fired & in_block & hop_ok & not_silent & (frac > 0.0)
+    bpms = torch.where(fire, bpm.unsqueeze(-1), 0.0).reshape(batch, -1)
+    fires = fire.reshape(batch, -1)
+    median = masked_quantile_midpoint(bpms, fires, 0.5)
+    value = normalize_range(median, 0.0, MAX_BPM)
+    return torch.where(fires.any(1), value, -1.0).to(torch.float32)
 
 
 def tempo_from_series(
@@ -422,60 +307,11 @@ def tempo_from_series(
     """Beat tracking + median BPM `[B]` from the thresholded novelty
     `thresh [B, H]` and silence flags `silent [B, H]`; hops >= `h_valid`
     are masked."""
-    step = consts.step
-    batch, h_max = thresh.shape
-    dev = thresh.device
-    n_blocks = max((h_max - (step - 1) - 1) // step + 1, 0)
-    if n_blocks == 0:
-        return torch.full((batch,), -1.0, dtype=torch.float32, device=dev)
-
-    h_valid = h_valid.unsqueeze(-1)
-    thresh_masked = torch.where(torch.arange(h_max, device=dev) < h_valid, thresh, 0.0)
-    blocks = _precompute_blocks(thresh_masked, n_blocks, consts)
-    state = initial_beat_state(batch, consts, dev)
-    pad_silent = torch.cat(
-        [silent, torch.ones((batch, step), dtype=torch.bool, device=dev)], dim=1
-    )
-
-    bpms, fires = [], []
-    for k in range(n_blocks):
-        hk = (step - 1) + step * k  # hop index of this beat-tracking run
-        block_valid = hk < h_valid.squeeze(-1)
-        xs = {name: v[:, k] for name, v in blocks.items()}
-        new_state, beat_vals, beat_fires = _bt_do(state, xs, consts)
-        bp = new_state["bp"]
-        bpm = torch.where(
-            bp != 0.0, 60.0 * sample_rate / (float(HOP_SIZE) * bp), 0.0
-        )
-        # a beat fires at hop hk + floor(beat) when that hop is in this
-        # block, valid and not silent, and frac > 0
-        # (src/aubio.rs:1419-1438, src/temporal.rs:50-57)
-        beat_floor = torch.floor(beat_vals)
-        frac = beat_vals - beat_floor
-        hop_of_beat = hk + beat_floor.to(torch.int64)
-        in_block = (beat_floor >= 0) & (beat_floor < step)
-        hop_ok = hop_of_beat < h_valid
-        not_silent = ~torch.gather(
-            pad_silent, 1, torch.clamp(hop_of_beat, 0, h_max + step - 1)
-        )
-        fire = (
-            beat_fires & block_valid.unsqueeze(-1) & in_block & hop_ok
-            & not_silent & (frac > 0.0)
-        )
-        bpms.append(torch.where(fire, bpm.unsqueeze(-1), 0.0))
-        fires.append(fire)
-        state = {
-            name: torch.where(
-                block_valid.view(-1, *([1] * (new.dim() - 1))), new, state[name]
-            )
-            for name, new in new_state.items()
-        }
-
-    bpms = torch.cat(bpms, dim=1)
-    fires = torch.cat(fires, dim=1)
-    median = masked_quantile_midpoint(bpms, fires, 0.5)
-    value = normalize_range(median, 0.0, MAX_BPM)
-    return torch.where(fires.any(1), value, -1.0).to(torch.float32)
+    if thresh.shape[1] < consts.step:  # not one block
+        return torch.full((thresh.shape[0],), -1.0, dtype=torch.float32, device=thresh.device)
+    blocks, n_valid = beat_track_inputs(thresh, h_valid, consts)
+    bp, beats, fired = beat_track(blocks, n_valid)
+    return _tempo_from_beats(bp, beats, fired, silent, h_valid, consts.step, sample_rate)
 
 
 def tempo_feature(

@@ -30,7 +30,9 @@ NVCC_FLAGS = [
 ]
 
 #: Every kernel source, `csrc/<name>.cu`.
-SOURCES = ("timbral_flat", "timbral_fft", "specflux", "ct_stft", "frame_dft", "tuning")
+SOURCES = (
+    "timbral_flat", "timbral_fft", "specflux", "ct_stft", "frame_dft", "tuning", "beat_track",
+)
 
 LAUNCHES: dict[str, int] = {}
 

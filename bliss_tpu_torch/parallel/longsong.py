@@ -317,6 +317,45 @@ def sharded_chroma_features(
     return _postprocess_chroma(raw, version).to(torch.float32).cpu().numpy()
 
 
+def _tempo_series(ext: torch.Tensor, shard_len: int, length: int, tab: dict):
+    """The beat tracker's inputs of the whole song from the halo-extended
+    shards `ext [D, HALO + shard_len + HALO]`: each shard's thresholded
+    novelty and silence flags, gathered to `[1, D * hps]`, and `h_valid [1]`."""
+    dev = ext.device
+    d_count = ext.shape[0]
+    hps = shard_len // B_HOP  # tempo hops per shard
+    sig = ext[:, HALO : HALO + shard_len]
+    right = ext[:, HALO + shard_len :]
+    # Frames for hops [h0 - 7, h0 + hps): the onset needs the previous
+    # frame's magnitudes, the 7-slot peak-picker window 6 more.
+    mags_b = frame_dft_mags(
+        ext, B_WIN, B_HOP, (7 * B_HOP + B_WIN - B_HOP) - HALO, hps + 7,
+        tab["hann_512"], tab["twiddle_512"],
+    )  # [D, hps + 7, 257]
+    onset_loc = torch.clamp(mags_b[:, 1:] - mags_b[:, :-1], min=0.0).sum(-1)
+    del mags_b  # hops [h0 - 6, h0 + hps)
+    windows = torch.stack(
+        [onset_loc[:, i : i + hps] for i in range(7)], dim=-1
+    )  # [D, hps, 7] = onset[h-6..h]
+    proc = tempo_model._filtfilt7(windows)
+    thresh_loc = (
+        proc[..., 5]
+        - torch.median(proc, dim=-1).values
+        - proc.mean(-1) * tempo_model._PP_THRESHOLD
+    )
+    # silence gate: the raw frame at hop h spans [256h, 256h + 512)
+    b = (sig.reshape(d_count, hps, B_HOP) ** 2).sum(-1)
+    b_next = torch.cat([b[:, 1:], (right[:, :B_HOP] ** 2).sum(-1, keepdim=True)], dim=1)
+    level_b = (b + b_next) / B_WIN
+    silent_loc = 10.0 * torch.log10(level_b) < tempo_model.SILENCE_DB
+    h_valid = torch.as_tensor([n_frames_strided(length, B_WIN, B_HOP)], device=dev)
+    return (
+        all_gather(thresh_loc).reshape(1, -1),
+        all_gather(silent_loc).reshape(1, -1),
+        h_valid,
+    )
+
+
 def sharded_analyze_samples(
     signal: np.ndarray,
     length: int,
@@ -343,11 +382,10 @@ def sharded_analyze_samples(
     )
     tab = default_tables().on(dev)
     d_count = shards
-    hps = shard_len // B_HOP  # tempo hops per shard
     fps_t = shard_len // T_HOP  # timbral frames per shard
     cps = shard_len // L_CHUNK  # loudness chunks per shard
     sig = ext[:, HALO : HALO + shard_len]
-    left, right = ext[:, :HALO], ext[:, HALO + shard_len :]
+    left = ext[:, :HALO]
     d = torch.arange(d_count, device=dev)
 
     # ---- chroma (exact cross-shard reductions)
@@ -368,35 +406,9 @@ def sharded_analyze_samples(
         cent.reshape(-1), roll.reshape(-1), flat.reshape(-1), mask_t
     )
 
-    # ---- tempo: local novelty + silence, one beat tracker on the gathered
-    # series. Frames for hops [h0 - 7, h0 + hps): the onset needs the
-    # previous frame's magnitudes, the 7-slot peak-picker window 6 more.
-    mags_b = frame_dft_mags(
-        ext, B_WIN, B_HOP, (7 * B_HOP + B_WIN - B_HOP) - HALO, hps + 7,
-        tab["hann_512"], tab["twiddle_512"],
-    )  # [D, hps + 7, 257]
-    onset_loc = torch.clamp(mags_b[:, 1:] - mags_b[:, :-1], min=0.0).sum(-1)
-    del mags_b  # hops [h0 - 6, h0 + hps)
-    windows = torch.stack(
-        [onset_loc[:, i : i + hps] for i in range(7)], dim=-1
-    )  # [D, hps, 7] = onset[h-6..h]
-    proc = tempo_model._filtfilt7(windows)
-    thresh_loc = (
-        proc[..., 5]
-        - torch.median(proc, dim=-1).values
-        - proc.mean(-1) * tempo_model._PP_THRESHOLD
-    )
-    # silence gate: the raw frame at hop h spans [256h, 256h + 512)
-    b = (sig.reshape(d_count, hps, B_HOP) ** 2).sum(-1)
-    b_next = torch.cat([b[:, 1:], (right[:, :B_HOP] ** 2).sum(-1, keepdim=True)], dim=1)
-    level_b = (b + b_next) / B_WIN
-    silent_loc = 10.0 * torch.log10(level_b) < tempo_model.SILENCE_DB
-    h_valid = torch.as_tensor([n_frames_strided(length, B_WIN, B_HOP)], device=dev)
+    # ---- tempo: one beat tracker on the gathered series
     tempo = tempo_model.tempo_from_series(
-        all_gather(thresh_loc).reshape(1, -1),
-        all_gather(silent_loc).reshape(1, -1),
-        h_valid,
-        tempo_model._bt_constants(dev, tab),
+        *_tempo_series(ext, shard_len, length, tab), tempo_model._bt_constants(dev, tab)
     )[0]
 
     # ---- loudness: local chunk levels, gathered summaries

@@ -22,10 +22,15 @@
    plane composition of the TPU contracts they replace (each song's sorted
    (key, bin) list and `n` against the planes, `o1`, `o2`, `min_c`, `tk`,
    the counts and the tuning against `bisect16_pair` twice, `level2_plane`,
-   `threshold_key` and `histogram_threshold_plane`);
+   `threshold_key` and `histogram_threshold_plane`); the beat tracker's
+   `beat_track` against its plain loop over blocks, bit for bit (each
+   block's bp, beats and fired, and the tempo feature from each), at the
+   batch's series and on edge cases (an all-silent song, a series with no
+   positive value, a song cut mid-way, one block, no valid block);
 5. drives `analyze_batch` (V2, then V1) on the card with the launch
    counts reset just before, fails if any kernel did not run, and times
-   each descriptor stage alone and both tuning routes on the batch's
+   each descriptor stage alone (the beat tracker's block inputs and its
+   kernel apart) and both tuning routes on the batch's
    spectra, equal bit for bit (`--profile` adds a torch.profiler trace of
    one batch: device busy share and the longest-running kernels);
 6. holds the card's f32 vectors against the port's CPU f64 path: on
@@ -33,7 +38,7 @@
    PIANO_V2) and on one synthetic song (<= 2e-2, same dominant chroma);
 7. long buckets, whose tuning takes the unfused route: on 8 synthetic
    7-minute songs (bucket 10,485,760) and 2 synthetic 21-minute songs
-   (bucket 29,360,128, B = 2) holds `bisect8_keys` (every level, both
+   (bucket 29,360,128, B = 2; on this one `beat_track` too, as in 4) holds `bisect8_keys` (every level, both
    ranks, bit for bit), `bisect8` (the int8-plane entry of the same
    counting pass) and `histogram_int_plane` against their plain versions at
    full width and times them, the whole radix select (4 launches, counted)
@@ -71,7 +76,8 @@
    piano.wav and the batch;
 10. long song, full width: one synthetic 60-minute song (79,380,000
    samples, 8 shards of 10,485,760): holds every kernel of the sharded
-   path at the shapes that path gives it: `ct_frames_mags` at one shard's
+   path at the shapes that path gives it: `beat_track` on the song's
+   gathered series (B = 1, 2,560 blocks) as in 4, `ct_frames_mags` at one shard's
    `[4,757, 8192]` (first, middle and last shard), `frame_dft_mags` at
    `[8, 10,506,554]` and `timbral_fft` on the same halo-extended shards
    with its negative frame offset, each against its plain version (the
@@ -81,7 +87,7 @@
    against a sort and timed alone beside the sharded chroma stage and the
    radix select on the same plane, and `histogram_int_plane` on the sharded
    tuning plane; drives `parallel.longsong.sharded_analyze_samples` with the
-   counts reset (the four must launch), holds the vector against the
+   counts reset (the five must launch), holds the vector against the
    bucketed `analyze_batch` (B = 1) of the same song (<= 2e-5 per feature,
    tempo equal; up to the 1e-4 contract a gap is printed as a fault, above
    it the run fails), prints warm seconds and peak memory of both routes
@@ -162,6 +168,15 @@ F32_OPS_PER_S = 67e12
 #: The tensor cores' dense bf16 rate (same data sheet), for the floor of
 #: `timbral_flat`'s six-pass design.
 BF16_TENSOR_OPS_PER_S = 989e12
+
+#: The beat tracker's work for a valid block: its 1,028 input words read
+#: once, bp, 8 beats and 8 flags written (44 bytes), and the f32 operations
+#: of one step (acfout and its maximum over 128 lags, the context model's
+#: weights over 256, phout's 21 terms over 160 rows, its weighting and
+#: maximum over 256): bytes bound it by four orders of magnitude.
+BT_BLOCK_BYTES = 1028 * 4
+BT_OUT_BYTES = 4 + 8 * 4 + 8
+BT_BLOCK_OPS = 128 * 2 + 256 * 6 + 160 * 21 + 256 * 2
 
 
 def fail(msg: str) -> None:
@@ -345,7 +360,7 @@ def hold_timbral_fft(x, n_frames: int, offset: int, label: str, mask) -> float:
     return diff[..., [0, 1, 4]].max().item()
 
 
-def stage_breakdown(x, lens, frame_mask, n_hops: int, warm_up: bool = True) -> None:
+def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
     """Warm host-clock time of each descriptor stage alone on the batch,
     synchronized before and after, plus the batch's upload from pageable
     host memory. `warm_up=False` times the first call of each stage (for a
@@ -354,18 +369,16 @@ def stage_breakdown(x, lens, frame_mask, n_hops: int, warm_up: bool = True) -> N
     from bliss_tpu_torch.models import loudness as LD
     from bliss_tpu_torch.models import tempo as TP
     from bliss_tpu_torch.models import timbral as TB
-    from bliss_tpu_torch.ops.dft_kernels import specflux
     from bliss_tpu_torch.ops.spectral import stft
-    from bliss_tpu_torch.ops.windows import n_frames_strided
+    from bliss_tpu_torch.ops.tempo_kernels import beat_track
     from bliss_tpu_torch.tables import default_tables
 
     dev = x.device
     tab = default_tables().on(dev)
     xs = torch.where(torch.arange(x.shape[1], device=dev) < lens.unsqueeze(-1), x, 0.0)
-    thresh = TP.thresholded_series(specflux(xs, n_hops))
-    silent = TP.silence_flags_blocked(xs, n_hops)
+    thresh, silent, h_valid = tempo_series(xs, lens)
     consts = TP._bt_constants(dev, tab)
-    h_valid = n_frames_strided(lens, 512, 256)
+    blocks, n_valid = TP.beat_track_inputs(thresh, h_valid, consts)
     spectrum = stft(xs, 8192, 2205, lens, frame_mask.shape[1])
     fused = CH.uses_fused_tuning(frame_mask.shape[1], torch.float32)
     tuning = CH._estimate_tuning_fused if fused else CH.estimate_tuning
@@ -383,6 +396,8 @@ def stage_breakdown(x, lens, frame_mask, n_hops: int, warm_up: bool = True) -> N
     stages = {
         "tempo": wall_ms(lambda: TP.tempo_feature(xs, lens, tab)),
         "tempo.beat_tracker": wall_ms(lambda: TP.tempo_from_series(thresh, silent, h_valid, consts)),
+        "tempo.beat_tracker.precompute": wall_ms(lambda: TP.beat_track_inputs(thresh, h_valid, consts)),
+        "tempo.beat_tracker.kernel": wall_ms(lambda: beat_track(blocks, n_valid)),
         "timbral+zcr": wall_ms(lambda: (TB.spectral_features(xs, lens, tab), TB.zcr_feature(xs, lens))),
         "loudness": wall_ms(lambda: LD.loudness_features(xs, lens)),
         "chroma": wall_ms(lambda: CH.chroma_features(xs, lens, 2, torch.float32, tab)),
@@ -395,8 +410,10 @@ def stage_breakdown(x, lens, frame_mask, n_hops: int, warm_up: bool = True) -> N
 
 
 def profile_batch(batch, lengths) -> None:
-    """torch.profiler over one warm V2 batch: device busy share and the
-    kernels that hold the device longest."""
+    """torch.profiler over one warm V2 batch: the device's busy share (the
+    union of its kernels' and copies' spans over the batch's wall time) and
+    the device ops that hold it longest."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from bliss_tpu_torch.models.analyzer import analyze_batch
@@ -408,18 +425,118 @@ def profile_batch(batch, lengths) -> None:
         analyze_batch(batch, lengths, version=2, device="cuda")
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            rows.append((dt, e.count, e.key))
-    busy = sum(r[0] for r in rows)
+
+    # device rows only: an operator's row repeats the time of the kernels it
+    # launched, and the profiler's own buffer request is no device work
+    def on_device(e):
+        return e.device_type == DeviceType.CUDA and e.key != "Activity Buffer Request"
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events() if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"
+    )
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    rows = sorted(
+        ((e.self_device_time_total, e.count, e.key) for e in prof.key_averages() if on_device(e)),
+        reverse=True,
+    )
     print(f"profile: wall {wall / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-          f"({100 * busy / wall:.1f}%), {sum(r[1] for r in rows)} device ops", flush=True)
-    for dt, count, key in sorted(rows, reverse=True)[:15]:
+          f"({100 * busy / wall:.1f}%), {len(spans)} device ops", flush=True)
+    for dt, count, key in rows[:15]:
         print(f"  {dt / 1e3:9.3f} ms {count:7d}x {key[:90]}")
+
+
+def tempo_series(x, lens):
+    """The beat tracker's inputs of a zero-padded batch `x [B, T]`, as
+    `tempo_feature` forms them: the thresholded novelty and the silence
+    flags `[B, H]` and `h_valid [B]`."""
+    from bliss_tpu_torch.models import tempo as TP
+    from bliss_tpu_torch.ops.dft_kernels import specflux
+    from bliss_tpu_torch.ops.windows import n_frames_strided
+
+    n_hops = int(n_frames_strided(x.shape[1], 512, 256))
+    return (
+        TP.thresholded_series(specflux(x, n_hops)),
+        TP.silence_flags_blocked(x, n_hops),
+        n_frames_strided(lens, 512, 256),
+    )
+
+
+def hold_beat_track(thresh, silent, h_valid, label: str, card: str, plain_reps: int = 0) -> dict:
+    """`beat_track` against its plain loop on the same block inputs: bp,
+    beats and fired bit for bit over every block (past a song's valid
+    blocks both freeze its state), and the tempo feature from each equal.
+    Times the kernel (mean of 20 launches) and the plain loop (`plain_reps`
+    warm calls, or the host clock of the comparison's one call), and
+    returns what `record` takes."""
+    from bliss_tpu_torch.models import tempo as TP
+    from bliss_tpu_torch.ops import tempo_kernels as TK
+    from bliss_tpu_torch.tables import default_tables
+
+    dev = thresh.device
+    consts = TP._bt_constants(dev, default_tables().on(dev))
+    blocks, n_valid = TP.beat_track_inputs(thresh, h_valid, consts)
+    got = TK.beat_track(blocks, n_valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = TK.beat_track_plain(blocks, n_valid)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    broken = []
+    for name, g, w in zip(("bp", "beats", "fired"), got, want):
+        gb = g.view(torch.int32) if g.dtype == torch.float32 else g
+        wb = w.view(torch.int32) if w.dtype == torch.float32 else w
+        if g.shape != w.shape or not torch.equal(gb, wb):
+            at = tuple((gb != wb).nonzero()[0].tolist()) if g.shape == w.shape else ()
+            broken.append(f"{name} first differs at (song, block, beat) {at}: kernel "
+                          f"{g[at].item()!r}, plain {w[at].item()!r}" if at else f"{name} shape")
+    tempo_k = TP._tempo_from_beats(*got, silent, h_valid, consts.step)
+    tempo_p = TP._tempo_from_beats(*want, silent, h_valid, consts.step)
+    if not torch.equal(tempo_k, tempo_p):
+        broken.append(f"tempo {tempo_k.tolist()} vs plain {tempo_p.tolist()}")
+    if broken:
+        fail(f"beat_track {label} vs plain: " + "; ".join(broken))
+    err = max((got[0] - want[0]).abs().max().item(), (got[1] - want[1]).abs().max().item())
+    ms = time_ms(lambda: TK.beat_track(blocks, n_valid), 20)
+    if plain_reps:
+        plain_ms = time_ms(lambda: TK.beat_track_plain(blocks, n_valid), plain_reps)
+    batch, n_blocks = blocks["dfrev"].shape[:2]
+    n_run = int(n_valid.sum())
+    longest = int(n_valid.max())
+    nbytes = n_run * BT_BLOCK_BYTES + batch * n_blocks * BT_OUT_BYTES + batch * 4
+    ops = n_run * BT_BLOCK_OPS
+    bnd = bound(nbytes, ops)
+    step_us = ms * 1e3 / max(longest, 1)
+    print(f"  beat_track {label}: B = {batch}, {n_blocks} blocks ({n_run} valid, the longest song "
+          f"{longest}), bit for bit with the plain loop, tempo {[round(v, 7) for v in tempo_k.tolist()]} "
+          f"equal; kernel {ms:.4f} ms = {step_us:.3f} us a block step, plain loop {plain_ms:.1f} ms, "
+          f"bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "nbytes": nbytes, "ops": ops,
+            "step_us": step_us}
+
+
+def hold_beat_track_edges(dev, card: str) -> None:
+    """`beat_track` on edge cases (B = 6, 3,000 hops): an all-silent song
+    (its series 0, every hop silent), a song with no positive value in its
+    series, a click train, the same cut at 1,500 hops, one block, and no
+    valid block."""
+    from bliss_tpu_torch.models import tempo as TP
+
+    rng = np.random.default_rng(7)
+    h = 3000
+    onset = (rng.random((6, h)) * 0.1).astype(np.float32)
+    onset[2:, ::43] += 3.0
+    thresh = TP.thresholded_series(torch.as_tensor(onset, device=dev))
+    thresh[0] = 0.0
+    thresh[1] = -(0.1 + 0.01 * torch.rand(h, generator=torch.Generator().manual_seed(7))).to(dev)
+    silent = torch.zeros((6, h), dtype=torch.bool, device=dev)
+    silent[0] = True
+    h_valid = torch.tensor([h, h, h, 1500, 200, 100], device=dev)
+    hold_beat_track(thresh, silent, h_valid, "edge cases", card)
 
 
 def hold_fused_tuning(record, spectrum, frame_mask, label: str) -> None:
@@ -554,6 +671,10 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     dev = torch.device("cuda", 0)
     x = torch.as_tensor(batch, device=dev)
     lens = torch.as_tensor(lengths, device=dev)
+    if not record_json:
+        held = hold_beat_track(*tempo_series(x, lens), label, card)
+        results["beat_track"][f"{n_songs}x{seconds / 60:g}min"] = {
+            k: held[k] for k in ("ms", "plain_ms", "step_us")}
     nfc = int(n_frames_stft(tpad, 2205))
     if CH.uses_fused_tuning(nfc, torch.float32):
         fail(f"{label}: bucket {tpad} ({nfc} frames) is within the fused budget")
@@ -1204,6 +1325,11 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     ext, shard_len = LS._extended_shards(song, n, tpad, shards, dev)
     fps_max, hps, fps_t = shard_len // LS.HOP + 2, shard_len // LS.B_HOP, shard_len // LS.T_HOP
     base = LS._shard_base(shards, shard_len, dev)
+    # the beat tracker on the song's gathered series (B = 1), as the sharded
+    # path runs it
+    held = hold_beat_track(*LS._tempo_series(ext, shard_len, n, tab),
+                           f"{minutes:g}-min song, gathered series", card)
+    results["beat_track"][f"{minutes:g}min_song"] = {k: held[k] for k in ("ms", "plain_ms", "step_us")}
     f_lo = (torch.arange(shards, device=dev) * shard_len + LS.HOP - 1) // LS.HOP
     # one launch a shard: the first shard (reflection around sample 0), the
     # last (reflection around the song's end), and one inside
@@ -1285,7 +1411,7 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     )
     print(f"  sharded ({shards} shards): first {first_s:.3f} s, warm {warm_s:.3f} s, peak "
           f"{peak:.2f} GB; launches {launches} [{card}]", flush=True)
-    need = ("ct_frames", "frame_dft_mags", "timbral_fft", "histogram_int_plane")
+    need = ("ct_frames", "frame_dft_mags", "timbral_fft", "histogram_int_plane", "beat_track")
     if any(launches.get(k, 0) < 1 for k in need):
         fail(f"long song: kernels not launched on the sharded path (counts {launches})")
     for k in ("ct_frames", "frame_dft_mags"):
@@ -1298,12 +1424,14 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     )
     print(f"  bucketed (B = 1): first {b_first:.3f} s, warm {b_warm:.3f} s, peak {b_peak:.2f} GB; "
           f"launches {b_launches} [{card}]", flush=True)
+    if b_launches.get("beat_track", 0) != 1:
+        fail(f"long song: the bucketed route launched beat_track {b_launches.get('beat_track', 0)} times")
     x1 = torch.as_tensor(buf, device=dev)
     lens1 = torch.as_tensor([n], device=dev)
     nfc = int(n_frames_stft(tpad, LS.HOP))
     mask1 = torch.arange(nfc, device=dev) < n_frames_stft(lens1, LS.HOP).unsqueeze(-1)
     print(f"  the bucketed route's {b_warm:.3f} s by stage:", flush=True)
-    stage_breakdown(x1, lens1, mask1, int(n_frames_strided(tpad, 512, 256)), warm_up=False)
+    stage_breakdown(x1, lens1, mask1, warm_up=False)
     del x1, lens1, mask1
     gap = np.abs(sharded - bucketed)
     print(f"  sharded vs bucketed: max {gap.max():.3g} (feature {int(gap.argmax())}), tempo "
@@ -1807,6 +1935,19 @@ def main() -> None:
     del got
     torch.cuda.empty_cache()
 
+    # the beat tracker at this batch's series, and on its edge cases
+    xs = torch.where(torch.arange(tpad, device=dev) < lens.unsqueeze(-1), x, 0.0)
+    held = hold_beat_track(*tempo_series(xs, lens), f"{b} x {args.seconds / 60:g}-min", card,
+                           plain_reps=2)
+    del xs
+    record(
+        "beat_track", "bliss_tpu_torch/csrc/beat_track.cu",
+        "bliss_tpu/models/tempo.py:760 (lax.scan, no Pallas kernel)", held["err"], held["ms"],
+        held["plain_ms"], held["nbytes"], held["ops"], None,
+    )
+    results["beat_track"]["step_us"] = held["step_us"]
+    hold_beat_track_edges(dev, card)
+
     # ---- the main path ---------------------------------------------------
     _build.reset_launches()
     torch.cuda.synchronize()
@@ -1840,7 +1981,7 @@ def main() -> None:
         print(f"  note: V2 repeat differs by {np.abs(v2 - v2b).max():.3g} (atomics order)")
     if np.abs(v2[:, :10] - v1[:, :10]).max() > 1e-6:
         fail("V1 and V2 disagree on the shared first 10 features")
-    stage_breakdown(x, lens, frame_mask, nh)
+    stage_breakdown(x, lens, frame_mask)
     # both tuning routes below the gate that picks one by the bucket's length
     hold_tuning_routes(
         stft(x, 8192, 2205, lens, nfc), frame_mask, f"{b} x {args.seconds / 60:g}-min"

@@ -150,6 +150,8 @@ def test_cuda_path_is_f32_only():
         ("tuning.cu", "pallas_hist.py:93 _make_threshold_kernel"),
         ("tuning.cu", "tuning_peaks_launch"),
         ("tuning.cu", "tuning_select_launch"),
+        ("beat_track.cu", "bliss_tpu/models/tempo.py:760 lax.scan (_bt_do/_checkstate)"),
+        ("beat_track.cu", "beat_track_launch"),
     ],
 )
 def test_kernel_sources_name_what_they_replace(source, replaces):
