@@ -122,6 +122,33 @@ __device__ __forceinline__ void load_block(const Inputs& in, long long row, int 
   b.ts4 = __ldg(in.ts_if4 + row);
 }
 
+// The step probe (benches/beat_track_step.py builds this source with
+// -DBLISS_BT_PROBE): clock64() stamps between the parts of a block step,
+// summed a part over a song's steps and written by lane 0 to `probe`
+// [B, kProbeParts + 1] (the last column: the whole kernel's cycles). Before
+// each stamp a volatile shared-memory store takes a value the part produced:
+// a warp issues in order, so the stamp waits until that value is there.
+// Without the define the marks are empty.
+constexpr int kProbeParts = 9;
+#ifdef BLISS_BT_PROBE
+__device__ __forceinline__ long long probe_clock() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+#define PROBE_MARK(part, dep)                                   \
+  do {                                                          \
+    probe_sink[lane] = __float_as_int(static_cast<float>(dep)); \
+    const long long probe_now = probe_clock();                  \
+    probe_acc[part] += probe_now - probe_t;                     \
+    probe_t = probe_now;                                        \
+  } while (0)
+#else
+#define PROBE_MARK(part, dep) \
+  do {                        \
+  } while (0)
+#endif
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
@@ -175,8 +202,14 @@ __device__ __forceinline__ float quad_peak_pos(const float* x, int pos, int n) {
 __global__ void __launch_bounds__(32)
 beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
                   float* __restrict__ bp_out, float* __restrict__ beats_out,
-                  unsigned char* __restrict__ fired_out) {
+                  unsigned char* __restrict__ fired_out, long long* __restrict__ probe) {
   __shared__ float s_df[kWin];
+#ifdef BLISS_BT_PROBE
+  __shared__ volatile int probe_sink[32];
+  long long probe_acc[kProbeParts] = {};
+  const long long probe_start = probe_clock();
+  long long probe_t = probe_start;
+#endif
   __shared__ float s_acf[kLag];
   __shared__ float s_ph[kPhwv + 1];  // the weighted phout head and phout[256] = 0
 
@@ -200,6 +233,7 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
 #pragma unroll
     for (int q = 0; q < kDfLane; ++q) s_df[lane + 32 * q] = cur.df[q];
     if (k + 1 < nv) load_block(in, row0 + k + 1, lane, nxt);
+    PROBE_MARK(0, cur.df[kDfLane - 1]);
 
     // ---- checkstate (src/aubio.rs:1096-1227)
     const bool sel3 = timesig == 3;
@@ -218,6 +252,7 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
     }
     const float gp_cand = quad_peak_pos(s_acf, acf_max, kLag);
     const float gp_new = gp > 0.0f ? gp_cand : 0.0f;
+    PROBE_MARK(1, gp_new);
 
     const bool at_zero = counter == 0;
     const bool step_change = fabsf(__fsub_rn(gp_new, rp)) > 2.0f * kGVar;
@@ -228,6 +263,7 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
         fabsf(__fsub_rn(__fsub_rn(__fmul_rn(2.0f, rp), rp1), rp2)) < kGVar;
     const bool flagconst = check && consistent;
     counter = check ? (consistent ? 0 : 2) : (counter > 0 ? counter - 1 : counter);
+    PROBE_MARK(2, counter + (flagconst ? 1 : 0));
 
     const bool use_ctx = !flagconst && timesig > 0;
     const bool ctx_weights = use_ctx && static_cast<float>(kStep) > lastbeat;
@@ -242,6 +278,7 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
       }
       phwv[r] = w;
     }
+    PROBE_MARK(3, phwv[kPhLane - 1]);
     float bp_new = flagconst ? rp : (use_ctx ? gp_new : rp);
     if (flagconst) {
 #pragma unroll
@@ -256,6 +293,7 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
       bp_new = __fmul_rn(bp_new, 2.0f);
     }
     bp = bp_new;
+    PROBE_MARK(4, bp);
 
     // ---- beat phase (src/aubio.rs:1017-1091)
     float vals[kMaxBeats];
@@ -292,6 +330,7 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
 #pragma unroll
       for (int r = 0; r < kPhLane; ++r) s_ph[lane + 32 * r] = ph[r];
       __syncwarp();
+      PROBE_MARK(5, ph[kHeadLane - 1]);
       int ph_max = kWin - 1;  // the maximum is one of the unweighted zeros
       if (any_nan(ph)) {
         ph_max = 0;
@@ -302,6 +341,7 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
       float phase = ph_max >= kWin - 1 ? __fsub_rn(static_cast<float>(kStep), lastbeat)
                                        : quad_peak_pos(s_ph, ph_max, kWin);
       phase = __fadd_rn(phase, 1.0f);
+      PROBE_MARK(6, phase);
 
       float beat = __fsub_rn(bp, phase);
       const bool skip = __fsub_rn(__fsub_rn(static_cast<float>(kStep), lastbeat), phase) <
@@ -311,6 +351,7 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
       for (int n = 0; n < kCatchUp && __fadd_rn(beat, bp) < 0.0f; ++n) {
         beat = __fadd_rn(beat, bp);
       }
+      PROBE_MARK(7, beat);
       // emit: the first beat if beat >= 0, then while beat + bp <= step
       vals[0] = beat;
       fires[0] = beat >= 0.0f;
@@ -341,7 +382,9 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
     }
     if (lane == 0) bp_out[row] = bp;
     __syncwarp();  // this step's shared-memory reads before the next one's writes
+    PROBE_MARK(8, my_val);
     if (k + 1 < nv) cur = nxt;
+    PROBE_MARK(0, cur.df[0]);  // the next block's registers are there
   }
 
   // past the valid blocks the state stays: bp as it is, no beat
@@ -351,6 +394,14 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
     fired_out[row0 * kMaxBeats + i] = 0;
   }
   for (int k = nv + lane; k < n_blocks; k += 32) bp_out[row0 + k] = bp;
+#ifdef BLISS_BT_PROBE
+  if (lane == 0) {
+    long long* mine = probe + static_cast<long long>(blockIdx.x) * (kProbeParts + 1);
+#pragma unroll
+    for (int q = 0; q < kProbeParts; ++q) mine[q] = probe_acc[q];
+    mine[kProbeParts] = probe_clock() - probe_start;
+  }
+#endif
 }
 
 }  // namespace
@@ -365,6 +416,71 @@ extern "C" int beat_track_launch(const float* dfrev, const float* comb_u3,
   if (batch <= 0 || n_blocks <= 0) return 0;
   const Inputs in{dfrev, comb_u3, comb_u4, gwv_if3, gwv_if4,
                   rp_if3, rp_if4, ts_if3, ts_if4};
-  beat_track_kernel<<<batch, 32, 0, stream>>>(in, n_valid, n_blocks, bp, beats, fired);
+  beat_track_kernel<<<batch, 32, 0, stream>>>(in, n_valid, n_blocks, bp, beats, fired, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef BLISS_BT_PROBE
+// The latency of one dependent operation of each kind a step chains, in
+// cycles: one warp runs kChain repetitions of each and writes the cycles a
+// repetition to `out` [kLatencyKinds]: a warp shuffle, __fadd_rn, a
+// shared-memory load, __fdiv_rn, expf, a ballot, and the phase sum's offset
+// round(bp k) (int to float, __fmul_rn, __fadd_rn, floor, float to int).
+constexpr int kLatencyKinds = 7;
+constexpr int kChain = 64;
+
+__global__ void __launch_bounds__(32) latency_kernel(const float* __restrict__ seed,
+                                                     long long* __restrict__ out) {
+  __shared__ int s_chase[32];
+  const int lane = threadIdx.x;
+  s_chase[lane] = lane;
+  __syncwarp();
+  const float y = seed[lane];  // 1 + 2^-20: never folds
+  float x = seed[32 + lane];
+  int i = lane;
+  long long t0, cycles[kLatencyKinds];
+  unsigned int b = lane;
+#define LATENCY_CHAIN(kind, body, dep)                 \
+  t0 = probe_clock();                                  \
+  _Pragma("unroll") for (int n = 0; n < kChain; ++n) { \
+    body;                                              \
+  }                                                    \
+  probe_sink_global = dep;                             \
+  cycles[kind] = probe_clock() - t0;
+  volatile float probe_sink_global;
+  LATENCY_CHAIN(0, x = __shfl_xor_sync(kFull, x, 1), x)
+  LATENCY_CHAIN(1, x = __fadd_rn(x, y), x)
+  LATENCY_CHAIN(2, i = s_chase[i], static_cast<float>(i))
+  LATENCY_CHAIN(3, x = __fdiv_rn(x, y), x)
+  LATENCY_CHAIN(4, x = expf(-x), x)
+  LATENCY_CHAIN(5, b = __ballot_sync(kFull, (b >> lane) & 1u), static_cast<float>(b))
+  LATENCY_CHAIN(6, i = static_cast<int>(floorf(__fadd_rn(__fmul_rn(static_cast<float>(i), y), 0.5f))),
+                static_cast<float>(i))
+#undef LATENCY_CHAIN
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < kLatencyKinds; ++q) out[q] = cycles[q];
+  }
+}
+
+extern "C" int beat_track_latency_launch(const float* seed, long long* out, cudaStream_t stream) {
+  latency_kernel<<<1, 32, 0, stream>>>(seed, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// beat_track_launch with the step probe's cycles `probe` [batch, kProbeParts + 1].
+extern "C" int beat_track_probe_launch(const float* dfrev, const float* comb_u3,
+                                       const float* comb_u4, const float* gwv_if3,
+                                       const float* gwv_if4, const float* rp_if3,
+                                       const float* rp_if4, const int* ts_if3,
+                                       const int* ts_if4, const int* n_valid, int batch,
+                                       int n_blocks, float* bp, float* beats,
+                                       unsigned char* fired, long long* probe,
+                                       cudaStream_t stream) {
+  if (batch <= 0 || n_blocks <= 0) return 0;
+  const Inputs in{dfrev, comb_u3, comb_u4, gwv_if3, gwv_if4,
+                  rp_if3, rp_if4, ts_if3, ts_if4};
+  beat_track_kernel<<<batch, 32, 0, stream>>>(in, n_valid, n_blocks, bp, beats, fired, probe);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -7,7 +7,8 @@ kernel launch, `ops/dft_kernels.specflux`), the adaptive threshold and the
 silence gates. The beat tracker runs in three parts, as the JAX package's
 `lax.scan` splits its carry from its outputs: the per-block quantities
 that do not depend on the hypothesis state, batched over `[B, NB]`
-(`_precompute_blocks`); the sequential state machine over blocks of 128
+(`_precompute_blocks`, its autocorrelation one kernel launch,
+`ops/tempo_kernels.autocorr`); the sequential state machine over blocks of 128
 hops (`ops/tempo_kernels.beat_track`: one kernel launch on the card, a
 loop over blocks on the CPU); and the per-beat firing and the median BPM,
 batched over `[B, NB, 8]` (`_tempo_from_beats`), which feed nothing back.
@@ -33,6 +34,7 @@ from ..ops.tempo_kernels import (  # noqa: F401 (re-export)
     _double_slow_tempi,
     _quad_peak_pos,
     _vec_max_elem,
+    autocorr,
     beat_track,
 )
 from ..ops.windows import frame_signal, n_frames_strided
@@ -134,24 +136,6 @@ def silence_flags_blocked(signal: torch.Tensor, h_max: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _autocorr(df: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    """vec_autocorr over the last axis, `acf[i] = sum_j df[j-i] df[j] / (n-i)`
-    (src/aubio.rs:819-828), as a Toeplitz matrix-vector product over row
-    chunks (bounds the `[rows, n, n]` Toeplitz buffer)."""
-    n = df.shape[-1]
-    rows = df.reshape(-1, n)
-    i = torch.arange(n, device=df.device)
-    shift = (i.unsqueeze(0) - i.unsqueeze(1)) % (2 * n)  # [i, j] -> j - i
-    out = []
-    for lo in range(0, rows.shape[0], chunk):
-        r = rows[lo : lo + chunk]
-        zp = torch.nn.functional.pad(r, (0, n))  # negative shifts read zeros
-        toeplitz = zp[:, shift]  # [rows, n, n]
-        out.append(torch.matmul(toeplitz, r.unsqueeze(-1)).squeeze(-1))
-    acf = torch.cat(out).reshape(df.shape)
-    return acf / (n - torch.arange(n, dtype=df.dtype, device=df.device))
-
-
 def _get_timesig(acf: torch.Tensor, gp_int: torch.Tensor) -> torch.Tensor:
     """Time-signature estimate from the autocorrelation (src/aubio.rs:864-907)."""
     n = acf.shape[-1]
@@ -189,7 +173,7 @@ def _precompute_blocks(thresh_masked: torch.Tensor, n_blocks: int, consts: _BTCo
     dfframes = frame_signal(
         thresh_masked, winlen, step, offset=winlen - step + 1, n_frames=n_blocks
     )  # [B, NB, winlen]
-    acfs = _autocorr(dfframes)
+    acfs = autocorr(dfframes.contiguous())  # [B, NB, winlen]
     dfrevs = (dfframes * consts.dfwv).flip(-1)
 
     i = torch.arange(laglen, device=dev)
@@ -200,7 +184,10 @@ def _precompute_blocks(thresh_masked: torch.Tensor, n_blocks: int, consts: _BTCo
         valid = idx < winlen
         vals = acfs[..., torch.clamp(idx, 0, winlen - 1)]  # [B, NB, laglen, 2a-1]
         vals = torch.where(valid, vals, 0.0)
-        contribs.append(vals.sum(-1) * interior)
+        total = torch.zeros_like(vals[..., 0])
+        for t in range(2 * a - 1):  # from 0, left to right, as XLA's reduce adds
+            total = total + vals[..., t]
+        contribs.append(total * interior)
     c1, c2, c3, c4 = contribs
     w = [float(np.float32(1.0 / (2 * a - 1))) for a in range(1, 5)]
     comb_w3 = c1 * w[0] + c2 * w[1] + c3 * w[2]

@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 #: Every kernel source, `csrc/<name>.cu`.
 SOURCES = (
     "timbral_flat", "timbral_fft", "specflux", "ct_stft", "frame_dft", "tuning", "beat_track",
+    "autocorr",
 )
 
 LAUNCHES: dict[str, int] = {}

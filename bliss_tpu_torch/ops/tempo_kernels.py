@@ -15,6 +15,12 @@ Every step of the plain version rounds on its own, as eager PyTorch does
 on every device, and its one multi-term sum (the beat phase's `phout`,
 over the comb's 21 lags) runs left to right: the kernel repeats that
 arithmetic op for op, so the two agree bit for bit on the card.
+
+`autocorr` is the block inputs' autocorrelation (the JAX package's
+`_autocorr`, an XLA matmul): on a CUDA tensor one launch of
+csrc/autocorr.cu, on a CPU tensor `autocorr_plain`. Both sum each lag in
+the order XLA's CPU backend compiles that matmul into, so the port's
+block inputs equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +51,83 @@ BLOCK_WIDTHS = {
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+#: The autocorrelation's partial sums per lag: XLA's CPU dot in 256-bit
+#: vectors, 8 f32 lanes.
+ACF_LANES = 8
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """`fmaf(a, b, c)` of f32 tensors, rounded once. The f64 product of two
+    f32 values is exact; their f64 sum with `c` is made round-to-odd (nudged
+    one f64 ulp toward TwoSum's error when inexact and even), so the cast
+    to f32 rounds the exact value once and not twice."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bb = s - c64
+    err = (c64 - (s - bb)) + (p - bb)
+    bits = s.view(torch.int64)
+    nudge = (err != 0.0) & ((bits & 1) == 0) & torch.isfinite(s)
+    away = (err > 0.0) == (s > 0.0)  # toward err: up in magnitude when signs agree
+    bits = torch.where(nudge, torch.where(away, bits + 1, bits - 1), bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def autocorr_plain(df: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """vec_autocorr over the last axis (src/aubio.rs:819-828),
+    `acf[i] = sum_{j >= i} df[j-i] df[j] / (n - i)`, in the order of XLA's
+    CPU dot for the JAX package's `_autocorr`: 8 partial sums, partial w
+    takes the terms j = w (mod 8) in increasing j, each a fused multiply-add
+    rounded once; then ((p0+p1)+(p2+p3))+((p4+p5)+(p6+p7)) and one division.
+    The terms j < i, which XLA adds as zero products, are skipped: they come
+    first in each partial, while it is still +0, and +0 + +-0 is +0 (with
+    an inf or NaN at j < i, XLA's 0 * inf would be NaN; aubio's own loop
+    skips them too). Other dtypes (the CPU's f64 path) add in the
+    same order without the single rounding. Rows in chunks of `chunk`."""
+    n = df.shape[-1]
+    rows = df.reshape(-1, n)
+    dev = df.device
+    fma = _fma_f32 if df.dtype == torch.float32 else (lambda a, b, c: c + a * b)
+    lag = torch.arange(n, device=dev).unsqueeze(1)  # [n, 1]
+    lane = torch.arange(ACF_LANES, device=dev)  # [8]
+    out = []
+    for lo in range(0, rows.shape[0], chunk):
+        r = rows[lo : lo + chunk]
+        p = torch.zeros((r.shape[0], n, ACF_LANES), dtype=df.dtype, device=dev)
+        for m in range(-(-n // ACF_LANES)):
+            j = m * ACF_LANES + lane  # [8]
+            top = min(n, (m + 1) * ACF_LANES)  # lags past j take no term
+            shift = j - lag[:top]  # [top, 8]: j - i
+            take = (shift >= 0) & (j < n)
+            a = r[:, torch.clamp(shift, 0, n - 1)]  # [R, top, 8]: df[j - i]
+            b = r[:, torch.clamp(j, max=n - 1)].unsqueeze(1)  # [R, 1, 8]: df[j]
+            p[:, :top] = torch.where(take, fma(a, b, p[:, :top]), p[:, :top])
+        s = ((p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])) + (
+            (p[..., 4] + p[..., 5]) + (p[..., 6] + p[..., 7])
+        )
+        out.append(s)
+    acf = torch.cat(out).reshape(df.shape)
+    return acf / (n - torch.arange(n, dtype=df.dtype, device=dev))
+
+
+def autocorr(df: torch.Tensor) -> torch.Tensor:
+    """`autocorr_plain`'s function over `[..., 512]`: one launch of
+    csrc/autocorr.cu on a CUDA f32 tensor (a block a row), the plain version
+    on a CPU tensor."""
+    if not _build.on_cuda(df):
+        return autocorr_plain(df)
+    _build.require("autocorr", df, torch.float32, df.dim(), df.device)
+    if df.dim() < 1 or df.shape[-1] != WINLEN:
+        raise ValueError(f"autocorr: expected rows of {WINLEN}, got shape {tuple(df.shape)}")
+    acf = torch.empty_like(df)
+    rows = df.numel() // WINLEN
+    if rows == 0:
+        return acf
+    fn = _build.function("autocorr", "autocorr_launch", [_P, _P, ctypes.c_longlong, _P])
+    _build.check("autocorr", fn(_build.ptr(df), _build.ptr(acf), rows, _build.stream_ptr(df.device)))
+    _build.count_launch("autocorr")
+    return acf
 
 
 def _vec_max_elem(data: torch.Tensor) -> torch.Tensor:

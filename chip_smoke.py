@@ -370,7 +370,7 @@ def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
     from bliss_tpu_torch.models import tempo as TP
     from bliss_tpu_torch.models import timbral as TB
     from bliss_tpu_torch.ops.spectral import stft
-    from bliss_tpu_torch.ops.tempo_kernels import beat_track
+    from bliss_tpu_torch.ops.tempo_kernels import autocorr, beat_track
     from bliss_tpu_torch.tables import default_tables
 
     dev = x.device
@@ -379,6 +379,7 @@ def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
     thresh, silent, h_valid = tempo_series(xs, lens)
     consts = TP._bt_constants(dev, tab)
     blocks, n_valid = TP.beat_track_inputs(thresh, h_valid, consts)
+    rows = block_rows(thresh, h_valid)
     spectrum = stft(xs, 8192, 2205, lens, frame_mask.shape[1])
     fused = CH.uses_fused_tuning(frame_mask.shape[1], torch.float32)
     tuning = CH._estimate_tuning_fused if fused else CH.estimate_tuning
@@ -397,6 +398,7 @@ def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
         "tempo": wall_ms(lambda: TP.tempo_feature(xs, lens, tab)),
         "tempo.beat_tracker": wall_ms(lambda: TP.tempo_from_series(thresh, silent, h_valid, consts)),
         "tempo.beat_tracker.precompute": wall_ms(lambda: TP.beat_track_inputs(thresh, h_valid, consts)),
+        "tempo.beat_tracker.precompute.autocorr": wall_ms(lambda: autocorr(rows)),
         "tempo.beat_tracker.kernel": wall_ms(lambda: beat_track(blocks, n_valid)),
         "timbral+zcr": wall_ms(lambda: (TB.spectral_features(xs, lens, tab), TB.zcr_feature(xs, lens))),
         "loudness": wall_ms(lambda: LD.loudness_features(xs, lens)),
@@ -407,6 +409,10 @@ def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
     }
     print("stages (ms, warm, each alone): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    print(f"  the block inputs' peak device memory above the series: "
+          f"{peak_extra_gb(lambda: TP.beat_track_inputs(thresh, h_valid, consts)) * 1e3:.1f} MB "
+          f"(the autocorrelation's Toeplitz route alone: "
+          f"{peak_extra_gb(lambda: toeplitz_autocorr(rows)) * 1e3:.1f} MB)", flush=True)
 
 
 def profile_batch(batch, lengths) -> None:
@@ -517,6 +523,120 @@ def hold_beat_track(thresh, silent, h_valid, label: str, card: str, plain_reps: 
           f"bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]", flush=True)
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "nbytes": nbytes, "ops": ops,
             "step_us": step_us}
+
+
+def autocorr_edge_rows(dev) -> dict:
+    """Rows `[n, 512]` f32 that test the autocorrelation's rounding and its
+    special values: zeros, one nonzero (first, middle, last), +-inf and NaN
+    at both ends and inside, subnormals alone and beside normal values,
+    sums that overflow, and seeded Gaussian and rectified rows."""
+    f32 = np.float32
+    rng = np.random.default_rng(11)
+    cases = {"zeros": np.zeros((2, 512), f32)}
+    one = np.zeros((3, 512), f32)
+    one[0, 0], one[1, 255], one[2, 511] = 1.5, -2.25, 3.0
+    cases["one nonzero"] = one
+    special = rng.standard_normal((6, 512)).astype(f32)
+    special[0, 0], special[1, 511], special[2, 300] = np.inf, -np.inf, np.nan
+    special[3, 7], special[3, 400] = np.inf, -np.inf
+    special[4, :] = np.inf
+    special[5, 100] = np.nan
+    special[5, 200] = np.inf
+    cases["inf and NaN"] = special
+    tiny = (rng.standard_normal((3, 512)) * 1e-40).astype(f32)
+    tiny[1, ::2] = rng.standard_normal(256).astype(f32) * 1e-20
+    tiny[2, :] = np.float32(1.4e-45) * rng.integers(-3, 4, 512).astype(f32)
+    cases["subnormal"] = tiny
+    cases["overflow"] = (rng.standard_normal((2, 512)) * 3e19).astype(f32)
+    g = rng.standard_normal((8, 512)).astype(f32)
+    g[4:] = np.maximum(g[4:], 0.0)
+    cases["gaussian"] = g
+    return {k: torch.as_tensor(v, device=dev) for k, v in cases.items()}
+
+
+def same_floats(got, want) -> bool:
+    """Bit for bit, a NaN equal to any NaN at the same place."""
+    nan = torch.isnan(got) & torch.isnan(want)
+    return got.shape == want.shape and bool(((got.view(torch.int32) == want.view(torch.int32)) | nan).all())
+
+
+def block_rows(thresh, h_valid):
+    """The autocorrelation's input `[B, NB, 512]`: the series masked past
+    `h_valid` and framed as `models/tempo.py:_precompute_blocks` frames it."""
+    from bliss_tpu_torch.ops.windows import frame_signal
+
+    h = thresh.shape[1]
+    masked = torch.where(torch.arange(h, device=thresh.device) < h_valid.unsqueeze(-1), thresh, 0.0)
+    return frame_signal(masked, 512, 128, offset=512 - 128 + 1, n_frames=(h - 128) // 128 + 1).contiguous()
+
+
+def toeplitz_autocorr(df, chunk: int = 256):
+    """The route `autocorr` replaced (PR 1-10's `models/tempo.py:_autocorr`):
+    a gathered `[chunk, 512, 512]` Toeplitz matrix and `torch.matmul`, timed
+    as the library call beside the kernel and used nowhere in the port."""
+    n = df.shape[-1]
+    rows = df.reshape(-1, n)
+    i = torch.arange(n, device=df.device)
+    shift = (i.unsqueeze(0) - i.unsqueeze(1)) % (2 * n)
+    out = []
+    for lo in range(0, rows.shape[0], chunk):
+        r = rows[lo : lo + chunk]
+        toeplitz = torch.nn.functional.pad(r, (0, n))[:, shift]
+        out.append(torch.matmul(toeplitz, r.unsqueeze(-1)).squeeze(-1))
+    return torch.cat(out).reshape(df.shape) / (n - torch.arange(n, dtype=df.dtype, device=df.device))
+
+
+def peak_extra_gb(fn) -> float:
+    """Device memory `fn()` takes above what was held before it, at its peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def hold_autocorr(df, label: str, card: str) -> dict:
+    """`autocorr` against its plain version on the card, bit for bit (a NaN
+    beside a NaN), timed (20 launches) beside the plain version, the
+    Toeplitz route it replaced (its library call) and its bound; returns
+    what `record` takes."""
+    from bliss_tpu_torch.ops import tempo_kernels as TK
+
+    got = TK.autocorr(df)
+    want = TK.autocorr_plain(df)
+    torch.cuda.synchronize()
+    if not same_floats(got, want):
+        at = tuple(((got != want) & ~(torch.isnan(got) & torch.isnan(want))).nonzero()[0].tolist())
+        fail(f"autocorr {label} vs plain: first differs at {at}: kernel {got[at].item()!r}, "
+             f"plain {want[at].item()!r}")
+    err = torch.where(torch.isnan(got), 0.0, (got - want).abs()).max().item()
+    rows = df.numel() // 512
+    ms = time_ms(lambda: TK.autocorr(df), 20)
+    plain_ms = time_ms(lambda: TK.autocorr_plain(df), 2)
+    library_ms = time_ms(lambda: toeplitz_autocorr(df), 3)
+    gb, lib_gb = peak_extra_gb(lambda: TK.autocorr(df)), peak_extra_gb(lambda: toeplitz_autocorr(df))
+    nbytes = rows * 512 * 4 * 2
+    ops = rows * (512 * 513 // 2) * 2  # a multiply and an add a term
+    bnd = bound(nbytes, ops)
+    print(f"  autocorr {label}: {rows} rows, bit for bit with the plain version; kernel {ms:.4f} ms "
+          f"(+{gb * 1e3:.1f} MB), plain {plain_ms:.3f} ms, Toeplitz route {library_ms:.4f} ms "
+          f"(+{lib_gb * 1e3:.1f} MB), bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "nbytes": nbytes, "ops": ops, "rows": rows}
+
+
+def hold_autocorr_edges(dev) -> None:
+    """`autocorr` on `autocorr_edge_rows`, bit for bit with the plain version."""
+    from bliss_tpu_torch.ops import tempo_kernels as TK
+
+    for name, rows in autocorr_edge_rows(dev).items():
+        got, want = TK.autocorr(rows), TK.autocorr_plain(rows)
+        torch.cuda.synchronize()
+        if not same_floats(got, want):
+            fail(f"autocorr edge case {name!r} vs plain")
+    print("  autocorr edge cases (zeros, one nonzero, inf and NaN, subnormal, overflow, "
+          "gaussian): bit for bit with the plain version", flush=True)
 
 
 def hold_beat_track_edges(dev, card: str) -> None:
@@ -672,9 +792,14 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     x = torch.as_tensor(batch, device=dev)
     lens = torch.as_tensor(lengths, device=dev)
     if not record_json:
-        held = hold_beat_track(*tempo_series(x, lens), label, card)
+        series = tempo_series(x, lens)
+        held = hold_beat_track(*series, label, card)
         results["beat_track"][f"{n_songs}x{seconds / 60:g}min"] = {
             k: held[k] for k in ("ms", "plain_ms", "step_us")}
+        held = hold_autocorr(block_rows(series[0], series[2]), label, card)
+        results["autocorr"][f"{n_songs}x{seconds / 60:g}min"] = {
+            k: held[k] for k in ("ms", "plain_ms", "library_ms", "rows")}
+        del series
     nfc = int(n_frames_stft(tpad, 2205))
     if CH.uses_fused_tuning(nfc, torch.float32):
         fail(f"{label}: bucket {tpad} ({nfc} frames) is within the fused budget")
@@ -1327,9 +1452,13 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     base = LS._shard_base(shards, shard_len, dev)
     # the beat tracker on the song's gathered series (B = 1), as the sharded
     # path runs it
-    held = hold_beat_track(*LS._tempo_series(ext, shard_len, n, tab),
-                           f"{minutes:g}-min song, gathered series", card)
+    series = LS._tempo_series(ext, shard_len, n, tab)
+    held = hold_beat_track(*series, f"{minutes:g}-min song, gathered series", card)
     results["beat_track"][f"{minutes:g}min_song"] = {k: held[k] for k in ("ms", "plain_ms", "step_us")}
+    held = hold_autocorr(block_rows(series[0], series[2]), f"{minutes:g}-min song, gathered series", card)
+    results["autocorr"][f"{minutes:g}min_song"] = {
+        k: held[k] for k in ("ms", "plain_ms", "library_ms", "rows")}
+    del series
     f_lo = (torch.arange(shards, device=dev) * shard_len + LS.HOP - 1) // LS.HOP
     # one launch a shard: the first shard (reflection around sample 0), the
     # last (reflection around the song's end), and one inside
@@ -1411,7 +1540,8 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     )
     print(f"  sharded ({shards} shards): first {first_s:.3f} s, warm {warm_s:.3f} s, peak "
           f"{peak:.2f} GB; launches {launches} [{card}]", flush=True)
-    need = ("ct_frames", "frame_dft_mags", "timbral_fft", "histogram_int_plane", "beat_track")
+    need = ("ct_frames", "frame_dft_mags", "timbral_fft", "histogram_int_plane", "beat_track",
+            "autocorr")
     if any(launches.get(k, 0) < 1 for k in need):
         fail(f"long song: kernels not launched on the sharded path (counts {launches})")
     for k in ("ct_frames", "frame_dft_mags"):
@@ -1939,7 +2069,6 @@ def main() -> None:
     xs = torch.where(torch.arange(tpad, device=dev) < lens.unsqueeze(-1), x, 0.0)
     held = hold_beat_track(*tempo_series(xs, lens), f"{b} x {args.seconds / 60:g}-min", card,
                            plain_reps=2)
-    del xs
     record(
         "beat_track", "bliss_tpu_torch/csrc/beat_track.cu",
         "bliss_tpu/models/tempo.py:760 (lax.scan, no Pallas kernel)", held["err"], held["ms"],
@@ -1947,6 +2076,15 @@ def main() -> None:
     )
     results["beat_track"]["step_us"] = held["step_us"]
     hold_beat_track_edges(dev, card)
+    series = tempo_series(xs, lens)
+    held = hold_autocorr(block_rows(series[0], series[2]), f"{b} x {args.seconds / 60:g}-min", card)
+    del xs, series
+    record(
+        "autocorr", "bliss_tpu_torch/csrc/autocorr.cu",
+        "bliss_tpu/models/tempo.py:236 (_autocorr, XLA matmul, no Pallas kernel)", held["err"],
+        held["ms"], held["plain_ms"], held["nbytes"], held["ops"], held["library_ms"],
+    )
+    hold_autocorr_edges(dev)
 
     # ---- the main path ---------------------------------------------------
     _build.reset_launches()

@@ -4,16 +4,19 @@ JAX package's `lax.scan` over `_bt_do`, and the tempo feature of the port's
 against `bliss_tpu`'s, on the CPU, over thresholded series made with numpy
 from fixed seeds.
 
-The state machine is held on the block inputs of the JAX package's own
-`_precompute_blocks`, so both sides walk the same inputs: the beat period
-after each block exact, the firing flags exact, the beats within 1e-5
-(the JAX package sums the beat phase as a selection-matrix product, in
-XLA's order; the port adds the 21 lags left to right). The tempo feature
-is held exact. The test marked `cuda` holds the kernel against the plain
-loop bit for bit on the card and skips without one; this module imports
-JAX only inside its JAX comparisons, so it runs there with
-`python3 -m pytest --noconftest -p no:cacheprovider -m cuda
-tests/test_torch_beat_track.py`.
+The block inputs' autocorrelation (`ops/tempo_kernels.autocorr`) equals the
+JAX package's `_autocorr` bit for bit, and so does every block input but
+the two Gaussian weight vectors, whose `exp` is XLA's on one side and
+PyTorch's on the other (within an ulp). The state machine is held on the
+block inputs of the JAX package's own `_precompute_blocks`, so both sides
+walk the same inputs: the beat period after each block exact, the firing
+flags exact, the beats within 1e-5 (the JAX package sums the beat phase as
+a selection-matrix product, in XLA's order; the port adds the 21 lags left
+to right). The tempo feature is held exact. The tests marked `cuda` hold
+the two kernels against their plain versions bit for bit on the card and
+skip without one; this module imports JAX only inside its JAX
+comparisons, so they run there with `python3 -m pytest --noconftest -p
+no:cacheprovider -m cuda tests/test_torch_beat_track.py`.
 """
 
 import functools
@@ -25,6 +28,7 @@ import torch
 from bliss_tpu_torch.models import tempo as TT
 from bliss_tpu_torch.ops import _build
 from bliss_tpu_torch.ops import tempo_kernels as TK
+from bliss_tpu_torch.ops.windows import frame_signal
 
 torch.set_num_threads(1)
 
@@ -156,6 +160,97 @@ def _stack(songs):
     }
 
 
+def _block_rows(name):
+    """Every block row `[rows, 512]` of a case's series, as
+    `_precompute_blocks` frames it (hops past `h_valid` masked)."""
+    thresh, _, h_valid = _series(name)
+    h = thresh.shape[1]
+    masked = torch.where(torch.arange(h) < _t(h_valid).unsqueeze(-1), _t(thresh), 0.0)
+    n_blocks = (h - STEP) // STEP + 1
+    frames = frame_signal(masked, TK.WINLEN, STEP, offset=TK.WINLEN - STEP + 1, n_frames=n_blocks)
+    return frames.reshape(-1, TK.WINLEN)
+
+
+def _gaussian_rows(seed, rectified):
+    rows = np.random.default_rng(seed).standard_normal((64, TK.WINLEN)).astype(np.float32)
+    return _t(np.maximum(rows, 0.0) if rectified else rows)
+
+
+# ---------------------------------------------------------------------------
+# the block inputs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", ["cases", "gaussian", "rectified"])
+def test_autocorr_matches_jax(rows):
+    """The port's f32 autocorrelation against `jax.vmap` of the JAX
+    package's `_autocorr` (XLA's matmul on the CPU), bit for bit: every
+    block row of the 8 cases (346 rows), 64 Gaussian rows, 64 rectified
+    Gaussian rows."""
+    import jax
+    import jax.numpy as jnp
+
+    from bliss_tpu.models import tempo as JT
+
+    if rows == "cases":
+        df = torch.cat([_block_rows(name) for name in CASES])
+        assert df.shape[0] == 346
+    else:
+        df = _gaussian_rows(11, rows == "rectified")
+    got = TK.autocorr(df)
+    want = np.asarray(jax.vmap(JT._autocorr)(jnp.asarray(df.numpy())))
+    assert got.dtype == torch.float32 and got.shape == df.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+def test_autocorr_plain_rounds_each_step_once():
+    """The plain version's emulated FMA rounds once: where a product rounded
+    on its own loses the answer, and where the f64 sum rounded to f32 is a
+    double rounding; f64 rows sum in the same order without it."""
+    f32 = np.float32
+    one = f32(1.0 + 2.0 ** -23)
+    a = _t([f32(1.0 + 2.0 ** -12)])
+    got = TK._fma_f32(a, a, _t([f32(-1.0)])).item()
+    assert got == 2.0 ** -11 + 2.0 ** -24  # a * a - 1 exactly; rounded apart: 2^-11
+    # (1 + 2^-23) 2^-12 * -(1 - 2^-23) 2^-12 + (1 + 2^-23) = 1 + 2^-24 + 2^-70:
+    # above the f32 tie, but its f64 sum is the tie, which rounds to 1
+    x, y = _t([f32((1.0 + 2.0 ** -23) * 2.0 ** -12)]), _t([f32(-(1.0 - 2.0 ** -23) * 2.0 ** -12)])
+    assert (x.double() * y.double() + float(one)).float().item() == 1.0
+    assert TK._fma_f32(x, y, _t([one])).item() == float(one)
+    df = _gaussian_rows(3, False)[:2].double()
+    lags = [0, 1, 200, 511]
+    want = [[sum(df[r, j - i].item() * df[r, j].item() for j in range(i, 512)) / (512 - i)
+             for i in lags] for r in range(2)]
+    got = TK.autocorr(df)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got[:, lags].numpy(), want, rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_precompute_blocks_matches_jax(name):
+    """Every block input of the port's `_precompute_blocks` against the JAX
+    package's `BlockInputs`, song by song: equal bit for bit, but the
+    Gaussian weights `gwv_if3`/`gwv_if4`, `exp` of an equal argument, whose
+    `exp` is XLA's CPU approximation on one side and PyTorch's on the other:
+    those are held within one ulp, and where XLA's gives 0 for a result
+    below f32's smallest normal, PyTorch's subnormal stands beside it."""
+    thresh, _, h_valid = _series(name)
+    songs, n_valid = _jax_blocks(thresh, h_valid)
+    want = _stack(songs)
+    consts = TT._bt_constants("cpu")
+    got, got_valid = TT.beat_track_inputs(_t(thresh), _t(h_valid), consts)
+    np.testing.assert_array_equal(got_valid.numpy(), n_valid)
+    for field in TK.BLOCK_WIDTHS:
+        g, w = got[field], want[field]
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        if field.startswith("gwv_"):
+            ulps = (g.view(torch.int32).long() - w.view(torch.int32).long()).abs()
+            flushed = (w == 0.0) & (g < torch.finfo(torch.float32).tiny)
+            assert bool(((ulps <= 1) | flushed).all()) and bool((g >= 0).all()), field
+        else:
+            np.testing.assert_array_equal(_bits(g).numpy(), _bits(w).numpy(), err_msg=field)
+
+
 # ---------------------------------------------------------------------------
 # the state machine
 # ---------------------------------------------------------------------------
@@ -204,13 +299,8 @@ def test_beat_track_plain_matches_jax_scan(name):
 def test_tempo_from_series_matches_jax(name):
     """The tempo feature against the JAX package's `tempo_from_series`, per
     song. From the JAX package's block inputs, the port's state machine and
-    its batched firing and median (`_tempo_from_beats`) give it exactly.
-    The port's whole `tempo_from_series` gives it exactly too, but on the
-    constant onsets of "no_onsets": there every lag of the autocorrelation
-    is alike, the port's sums each lag in another order than the JAX
-    package's (both within 1e-8 of f64), and the comb's peak moves by ulps,
-    so that case is held within 1e-5, a tenth of the per-feature contract
-    (ROADMAP.md, Queue 3)."""
+    its batched firing and median (`_tempo_from_beats`) give it exactly, and
+    so does the port's whole `tempo_from_series`."""
     import jax.numpy as jnp
 
     from bliss_tpu.models import tempo as JT
@@ -238,10 +328,7 @@ def test_tempo_from_series_matches_jax(name):
         *TK.beat_track_plain(jax_blocks, _t(n_valid)), _t(silent), _t(h_valid), STEP
     ).numpy()
     np.testing.assert_array_equal(from_jax_blocks, want)
-    if name == "no_onsets":
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-    else:
-        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, want)
     if name == "no_onsets":  # the premise: no positive value in the series
         assert (thresh <= 0.0).all()
     if name == "one_and_zero_blocks":
@@ -264,6 +351,37 @@ def cuda():
 
 def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", ["zeros", "one nonzero", "inf and NaN", "subnormal", "overflow", "gaussian", "blocks"]
+)
+def test_cuda_autocorr_matches_plain(cuda, case):
+    """The autocorrelation kernel against its plain version on the card,
+    bit for bit (a NaN beside a NaN): chip_smoke.py's edge rows, and the
+    block rows of every case in their `[B, NB, 512]` layout; one launch;
+    what the kernel does not take raises."""
+    from chip_smoke import autocorr_edge_rows, same_floats
+
+    if case == "blocks":
+        rows = torch.cat([_block_rows(name) for name in CASES]).to(cuda).reshape(2, 173, 512)
+    else:
+        rows = autocorr_edge_rows(cuda)[case]
+    _build.reset_launches()
+    got = TK.autocorr(rows)
+    assert _build.LAUNCHES == {"autocorr": 1}
+    want = TK.autocorr_plain(rows)
+    torch.cuda.synchronize()
+    assert same_floats(got, want)
+    if case == "inf and NaN":
+        assert bool(torch.isnan(got).any()) and bool(torch.isfinite(got).any())
+    with pytest.raises(ValueError):
+        TK.autocorr(rows[..., :256])
+    with pytest.raises(TypeError):
+        TK.autocorr(rows.double())
+    with pytest.raises(ValueError):
+        TK.autocorr(rows.transpose(0, -1))
 
 
 @pytest.mark.cuda

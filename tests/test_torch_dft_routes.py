@@ -13,14 +13,10 @@ CUDA kernels against the plain versions on a card and skip without one.
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
-from bliss_tpu.models import analyzer as JA
-from bliss_tpu.ops import pallas_dft as JD
 from bliss_tpu_torch.models import analyzer as TA
 from bliss_tpu_torch.ops import _build
 from bliss_tpu_torch.ops import dft_kernels as TD
@@ -61,6 +57,10 @@ def test_ct_frames_plain_matches_pallas_interpret():
     """|rDFT| of pre-framed rows vs `pallas_stft_mags_ct`: 1e-5 of each
     frame's max; bins-major `[W/2+1, N]`, N not a multiple of the TPU's
     frame block."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops import pallas_dft as JD
+
     rng = np.random.default_rng(3)
     w, f = 8192, 37
     frames = (rng.normal(size=(f, w)) * 0.1).astype(np.float32)
@@ -74,6 +74,11 @@ def test_ct_frames_plain_matches_pallas_interpret():
 def test_frame_dft_plain_matches_pallas_interpret(hop, offset):
     """`[B, F, 257]` magnitudes vs `pallas_frame_dft_mags` (f32 products at
     full precision) on the offset-padded signal: 1e-5 of each frame's max."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from bliss_tpu.ops import pallas_dft as JD
+
     rng = np.random.default_rng(hop)
     n_frames = 300
     sig = (rng.normal(size=(2, hop * (n_frames + 6))) * 0.1).astype(np.float32)
@@ -102,6 +107,11 @@ def test_timbral_flat_plain_matches_pallas_interpret(monkeypatch):
     Pallas kernel, selected as the JAX package selects it: 1e-5 relative,
     `below` +-1 (ties on the 95% energy line), the log2 sum through the
     geometric mean it gives."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from bliss_tpu.ops import pallas_dft as JD
+
     monkeypatch.setenv("BLISS_TIMBRAL_FFT", "0")
     hop, n_frames, offset = 128, 200, 384
     rng = np.random.default_rng(4)
@@ -223,6 +233,8 @@ def test_route_matches_jax_cpu_analyzer(decoded_s16_mono, routes):
     """Each non-default route on the CPU vs the JAX package's CPU analyzer
     (its plain reference of the same functions), V2 at 1e-5 and tempo equal
     to the golden's; and vs the port's own default route."""
+    from bliss_tpu.models import analyzer as JA
+
     x = decoded_s16_mono
     want = JA.build_analyzer(2)(x)
     got = TA.build_analyzer(2, device="cpu", routes=routes)(x)

@@ -9,9 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-from bliss_tpu.io import batch as JB
-from bliss_tpu.io import fallback as JF
-from bliss_tpu.song import AnalysisOptions as JOptions
 from bliss_tpu_torch import errors as TE
 from bliss_tpu_torch.cue import BlissCue
 from bliss_tpu_torch.io import batch as TB
@@ -20,6 +17,15 @@ from bliss_tpu_torch.io.decoder import DefaultDecoder
 from bliss_tpu_torch.song import AnalysisOptions, Song
 
 torch.set_num_threads(1)
+
+DATA = pathlib.Path(__file__).parent / "data"
+
+
+@pytest.fixture(scope="session")
+def data_dir() -> pathlib.Path:
+    """The fixtures' folder, as tests/conftest.py gives it: this module's
+    own, so that its `cuda` case runs with `--noconftest` too."""
+    return DATA
 
 TAGS = (
     "title", "artist", "album", "album_artist", "genre", "track_number",
@@ -45,6 +51,8 @@ TAGS = (
 def test_decoders_match_jax_fallback(data_dir, name, decoder):
     """Each decoder of the port, and its FallbackDecoder dispatch, gives
     the PCM and tags of the JAX package's FallbackDecoder exactly."""
+    from bliss_tpu.io import fallback as JF
+
     path = data_dir / name
     want = JF.FallbackDecoder.decode(path)
     got = getattr(TF, decoder).decode(path)
@@ -60,6 +68,8 @@ def test_decoders_match_jax_fallback(data_dir, name, decoder):
 
 @pytest.mark.parametrize("name", ["nonexistent.flac", "nonexistent", "picture.png"])
 def test_decode_errors_match_jax(data_dir, name):
+    from bliss_tpu.io import fallback as JF
+
     path = data_dir / name
     with pytest.raises(Exception) as want:
         JF.FallbackDecoder.decode(path)
@@ -72,6 +82,8 @@ def test_decode_errors_match_jax(data_dir, name):
 def test_song_from_path_on_cpu(data_dir):
     """Decoder.song_from_path(device="cpu") == the JAX package's within
     1e-5, with the same record; too short songs raise AnalysisError."""
+    from bliss_tpu.io import fallback as JF
+
     path = data_dir / "piano.flac"
     want = JF.FallbackDecoder.song_from_path(path)
     got = TF.FallbackDecoder.song_from_path(path, device="cpu")
@@ -112,6 +124,10 @@ def test_batched_matches_jax_on_cpu(data_dir, version):
     JAX CPU backend, both with the FFI-free decoders: features within
     1e-5 per feature, the same CUE tracks and metadata, the same error
     classes for a too-short song and a missing file."""
+    from bliss_tpu.io import batch as JB
+    from bliss_tpu.io import fallback as JF
+    from bliss_tpu.song import AnalysisOptions as JOptions
+
     paths = [
         data_dir / "piano.flac",
         data_dir / "s16_mono_22_5kHz.flac",

@@ -12,14 +12,10 @@ mode). Tests marked `cuda` hold the CUDA kernels against the plain versions
 on a card and skip without one.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
-from bliss_tpu.ops import pallas_dft as JD
-from bliss_tpu.ops import pallas_select as JS
 from bliss_tpu_torch.ops import _build
 from bliss_tpu_torch.ops import dft_kernels as TD
 from bliss_tpu_torch.ops import reductions as TR
@@ -130,6 +126,10 @@ def test_key_entry_equals_plane_composition(name):
 def test_key_entry_planes_match_pallas_interpret():
     """The plane each level of the key entry stands for, through the Pallas
     `_bisect8` in interpret mode: the same `[bucket, below]`."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops import pallas_select as JS
+
     values, mask = _case("top_byte_2")
     v, m = _t(values[:1]).reshape(1, -1), _t(mask[:1]).reshape(1, -1)
     u, mm, _, _ = TT.radix_keys(v, m, 0.5)
@@ -149,6 +149,10 @@ def test_key_entry_planes_match_pallas_interpret():
 def test_radix_select_matches_pallas_interpret_and_sort(q):
     """`masked_quantile_midpoint_radix` through the four-launch loop == the
     JAX radix select (interpret) == the sort-based quantile, exactly."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops import pallas_select as JS
+
     rng = np.random.default_rng(int(q * 100))
     shape = (2, 31, 67)
     values = _values(rng, shape)
@@ -227,6 +231,11 @@ def test_frame_dft_negative_offset_matches_pallas_interpret(hop, offset):
     f32 matrix DFT at full precision) over frames that start inside the
     buffer, as a halo-extended shard's do: 1e-5 of each frame's max
     (tests/test_torch_dft_routes.py holds the positive offsets)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from bliss_tpu.ops import pallas_dft as JD
+
     rng = np.random.default_rng(hop + abs(offset))
     n_frames = 130
     sig = (rng.normal(size=(2, hop * (n_frames + 6) - offset)) * 0.1).astype(np.float32)

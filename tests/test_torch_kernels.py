@@ -8,17 +8,10 @@ hand-written CUDA kernels against the plain versions on a card and skip
 without one.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
-from bliss_tpu.models import chroma as JC
-from bliss_tpu.ops import pallas_dft as JD
-from bliss_tpu.ops import spectral as JS
-from bliss_tpu.ops.pallas_hist import histogram_threshold_plane as j_hist
-from bliss_tpu.ops.pallas_select import bisect16_pair as j_bisect
 from bliss_tpu_torch.models import chroma as TC
 from bliss_tpu_torch.ops import _build
 from bliss_tpu_torch.ops import dft_kernels as TD
@@ -47,6 +40,11 @@ def cuda():
 def test_timbral_plain_matches_pallas_interpret():
     """Rows (total, weighted, below, log2 sum, energy) vs the FFT-structured
     Pallas kernel: 1e-4 relative (two f32 FFTs), below +-1 (ties)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from bliss_tpu.ops import pallas_dft as JD
+
     hop, n_frames, offset = 128, 200, 384
     rng = np.random.default_rng(4)
     sig = (rng.normal(size=hop * (n_frames + 10)) * 0.1).astype(np.float32)
@@ -69,6 +67,11 @@ def test_timbral_plain_matches_pallas_interpret():
 
 def test_specflux_plain_matches_pallas_interpret():
     """Onset vs the Pallas SpecFlux kernel (bf16x3 products): 1e-4."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from bliss_tpu.ops import pallas_dft as JD
+
     hop, n_frames, offset = 256, 300, 256
     rng = np.random.default_rng(5)
     sig = (rng.normal(size=hop * (n_frames + 5)) * 0.1).astype(np.float32)
@@ -87,6 +90,10 @@ def test_ct_plain_matches_pallas_interpret():
     """|STFT| vs the CT Pallas kernel on the same frames: 1e-5 of the max
     (the fused in-kernel-framing variant has no interpret guarantee; this
     one computes the same CT DFT over pre-framed input)."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops import pallas_dft as JD
+
     rng = np.random.default_rng(3)
     w, hop, f = 8192, 2205, 37
     padded = (rng.normal(size=(f - 1) * hop + w) * 0.1).astype(np.float32)
@@ -100,6 +107,10 @@ def test_ct_plain_matches_pallas_interpret():
 def test_ct_plain_matches_jax_stft():
     """The chroma STFT path (reflect padding + CT kernel) vs the JAX stft
     on the CPU: 1e-5 of the max."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops import spectral as JS
+
     from bliss_tpu_torch.ops.spectral import stft
 
     rng = np.random.default_rng(6)
@@ -305,6 +316,10 @@ def test_ct8192_body_emulated_matches_pallas_interpret():
     against the JAX package's CT Pallas kernel on the same frames in
     interpret mode: within 1e-5 of each frame's max; and within 1e-6 of an
     f64 FFT, on quiet and silent frames too."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops import pallas_dft as JD
+
     from bliss_tpu_torch.ops.windows import _hann_np
     from bliss_tpu_torch.tables import twiddles
 
@@ -367,6 +382,10 @@ def _plane(rng, shape, density, spread):
     [((37, 250), 0.3, 300), ((64, 129), 0.02, 30000), ((5, 7), 1.0, 3), ((20, 40), 0.0, 10)],
 )
 def test_bisect16_pair_matches_pallas_interpret(shape, density, spread):
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops.pallas_select import bisect16_pair as j_bisect
+
     rng = np.random.default_rng(sum(shape))
     plane = _plane(rng, shape, density, spread)
     n = int((plane != 32767).sum())
@@ -379,6 +398,10 @@ def test_bisect16_pair_matches_pallas_interpret(shape, density, spread):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_histogram_threshold_matches_pallas_interpret(seed):
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops.pallas_hist import histogram_threshold_plane as j_hist
+
     rng = np.random.default_rng(seed)
     shape = (33, 157)
     idx8 = rng.integers(-3, 105, size=shape).astype(np.int8)
@@ -401,6 +424,10 @@ def _peaky_spectra(seed, bins=4097, frames=173):
 def test_fused_tuning_matches_pallas_interpret():
     """The port's fused estimator (plain kernel versions, f32) == the JAX
     fused estimator under interpret mode, bit for bit; silence gives 0."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.models import chroma as JC
+
     fmask = np.ones(173, bool)
     fmask[-7:] = False
     specs = [_peaky_spectra(0), np.zeros((4097, 173), np.float32)]
@@ -417,6 +444,10 @@ def test_fused_tuning_matches_pallas_interpret():
 def test_tuning_estimators_match_jax(seed):
     """Fused (f32, counting kernels) and sort-based (f64) estimators both
     equal the JAX unfused estimate_tuning, exactly."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.models import chroma as JC
+
     spec = _peaky_spectra(seed)
     fmask = np.ones(173, bool)
     fmask[:5] = False

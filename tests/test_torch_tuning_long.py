@@ -8,16 +8,10 @@ interpret mode). Tests marked `cuda` hold the CUDA kernels against the
 plain versions on a card and skip without one.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
-from bliss_tpu.models import chroma as JC
-from bliss_tpu.models.analyzer import bucket_length as j_bucket_length
-from bliss_tpu.ops import pallas_hist as JH
-from bliss_tpu.ops import pallas_select as JS
 from bliss_tpu_torch.models import chroma as TC
 from bliss_tpu_torch.models.analyzer import bucket_length
 from bliss_tpu_torch.ops import _build
@@ -54,6 +48,10 @@ def _byte_plane(rng, shape, density, top_share):
 
 
 def _j_bisect8(plane, k):
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops import pallas_select as JS
+
     padded = JS._pad_to_tile(jnp.asarray(plane), JS._SENT)
     bucket, below = JS._bisect8(padded, jnp.asarray(k, jnp.int32), interpret=True)
     return [int(bucket), int(below)]
@@ -97,6 +95,11 @@ def test_bisect8_sentinel_rule():
 def test_histogram_int_plane_matches_pallas_interpret(seed, n_bins):
     """Exact counts; values below 0 and at or above n_bins (the sentinel)
     are ignored."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from bliss_tpu.ops import pallas_hist as JH
+
     rng = np.random.default_rng(seed)
     planes = rng.integers(-5, n_bins + 5, size=(3, 41, 97)).astype(np.int32)
     planes[1, rng.random((41, 97)) < 0.9] = n_bins  # mostly sentinel
@@ -127,6 +130,10 @@ def _values(rng, shape):
 def test_radix_median_matches_pallas_interpret(density):
     """`masked_quantile_midpoint_radix` == the JAX radix select (interpret)
     == the sort-based masked median, exactly; +inf for an empty mask."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.ops import pallas_select as JS
+
     rng = np.random.default_rng(int(density * 100))
     shape = (3, 33, 70)
     values = _values(rng, shape)
@@ -163,6 +170,13 @@ def _j_unfused(spec, fmask, n_fft=8192, resolution=0.01):
     """The JAX unfused route composed by hand as chroma.py:447-466 runs it
     on a TPU: pip_track -> radix median (interpret) -> selection ->
     histogram_int_plane (interpret)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from bliss_tpu.models import chroma as JC
+    from bliss_tpu.ops import pallas_hist as JH
+    from bliss_tpu.ops import pallas_select as JS
+
     pitches, mags, peak = JC.pip_track(jnp.asarray(spec), jnp.asarray(fmask), n_fft)
     pos = peak & (pitches > 0.0)
     threshold = JS.masked_quantile_midpoint_radix(mags, pos, 0.5, interpret=True)
@@ -199,6 +213,10 @@ def test_unfused_estimator_matches_jax_and_fused():
 def test_pitch_tuning_sentinel_histogram():
     """pitch_tuning through histogram_int_plane == the JAX pitch_tuning
     (its CPU scatter-add), per song; an empty selection gives 0."""
+    import jax.numpy as jnp
+
+    from bliss_tpu.models import chroma as JC
+
     rng = np.random.default_rng(9)
     freqs = rng.uniform(-50.0, 4000.0, size=(2, 60, 30)).astype(np.float32)
     mask = rng.random((2, 60, 30)) < 0.3
@@ -219,6 +237,9 @@ def test_route_gate_matches_reference_budget():
     """Every bucket of a 3- to 60-minute song: the port's plane bytes and
     route equal the JAX package's `_fused_plane_bytes` <= 12 MiB gate;
     the fused route ends at the 8,388,608-sample bucket."""
+    from bliss_tpu.models import chroma as JC
+    from bliss_tpu.models.analyzer import bucket_length as j_bucket_length
+
     buckets = sorted({bucket_length(s * 22050) for s in range(180, 3601)})
     assert buckets == sorted({j_bucket_length(s * 22050) for s in range(180, 3601)})
     fused = []
