@@ -28,9 +28,9 @@ of the longest song.
 
 The latency floor: the dependent chain of a step in this tree's design,
 `CRITICAL_PATH`, as counts of operations, times the cycles of each kind
-measured here (the probe build's `latency_kernel`: 64 dependent
-repetitions a kind), times the longest song's blocks, at the clock the
-probe build's own cycles and time give.
+measured here (the probe build's `latency_kernel`: a launch of 2^20
+dependent repetitions of a kind, timed with CUDA events, at the clock the
+probe build's own cycles and time give), times the longest song's blocks.
 
 Needs a GPU and nvcc. Prints the card's name and power limit first.
 """
@@ -62,32 +62,47 @@ from bliss_tpu_torch.tables import default_tables  # noqa: E402
 P, I = ctypes.c_void_p, ctypes.c_int
 PROBE_FLAGS = ["-DBLISS_BT_PROBE"]
 
-#: The probe's parts, in the order of its columns.
-PARTS = (
-    "block inputs", "comb reductions + peak", "counter + flags", "context weights",
-    "doublings", "phase sum", "phout reductions + peak", "catch-up", "emit + stores",
-)
+#: The probe's parts, in the order of its columns: PR 10's kernel has 9, this
+#: tree's 10 (the ring's copy and its wait apart; the weights' quotients and
+#: exponentials run beside the phase sum and count there).
+PARTS = {
+    9: ("block inputs", "comb reductions + peak", "counter + flags", "context weights",
+        "doublings", "phase sum", "phout reductions + peak", "catch-up", "emit + stores"),
+    10: ("copy ahead", "block wait", "comb reductions + peak", "counter + flags",
+         "weights set-up", "doublings", "phase sum + weights", "phout reductions + peak",
+         "catch-up", "emit + stores"),
+}
 
-#: `latency_kernel`'s kinds, in the order of its output.
-LATENCY_KINDS = ("shfl", "fadd", "lds", "fdiv", "expf", "ballot", "offset")
+#: `latency_kernel`'s kinds, by their index there.
+LATENCY_KINDS = ("shfl", "fadd", "lds", "fdiv", "expf", "ballot", "offset", "div_rn_by")
 
-#: The dependent chain of one block step in this tree's kernel, as counts of
-#: each kind of operation (`LATENCY_KINDS`), when bp != 0, no doubling and no
-#: catch-up: the comb's product and its last maximum (3 `fmaxf` in the lane,
-#: 5 shuffle levels, a ballot) and quadratic peak (a load, 3 additions, a
-#: division); the flags and the choice of bp (2 additions); the offsets
-#: (one round(bp k) and a shuffle to each lane) and the 21 dependent
-#: additions of the phase sum after its first load; the weight product, the
-#: maximum over phout (4 in the lane, 5 levels, a ballot) and its peak (as
-#: the comb's); the phase, the skip test, and the emit's 7 dependent
-#: additions. The context weights (a division and an expf) run beside the
-#: offsets and the phase sum, which take longer.
+#: The dependent chain of one block step of this tree's kernel, as counts of
+#: each kind of operation (`LATENCY_KINDS`; "fadd" stands for every simple
+#: float or integer operation, a comparison or a select), when bp != 0, with
+#: no doubling and no catch-up, the block already in the ring:
+#:   - the comb: its load, the product, the last maximum (3 `fmaxf` in the
+#:     lane, 5 shuffle levels each with its `fmaxf`, a ballot, 3 integer
+#:     operations), the quadratic peak (a load, 3 operations, a division, an
+#:     addition) and the choice of gp: 1 load, 1 + 11 + 5 simple, 5 shuffles,
+#:     a ballot, 2 loads, a division;
+#:   - the flags and the choice of bp, the doubling's test: 6 simple;
+#:   - kmax (a reciprocal, counted as a division) beside the offsets: a lane's
+#:     round(bp k), 3 simple to clamp and choose it, a shuffle, an address,
+#:     the first load, 20 dependent additions, the weight's product: 1
+#:     offset, 25 simple, a shuffle, a load, a division;
+#:   - phout: the last maximum (4 in the lane, 5 levels, a ballot, 3
+#:     operations) and the peak, the phase: 18 simple, 5 shuffles, a ballot,
+#:     a load, a division;
+#:   - the beat, the skip test, the catch-up's test and the emit's 7
+#:     dependent additions with their tests: 28 simple.
+#: The weights' quotients and exponentials run beside the phase sum and stay
+#: off the chain.
 CRITICAL_PATH = {
-    "fadd": 1 + 3 + 5 + 2 + 20 + 1 + 4 + 5 + 3 + 5 + 2 + 7,
+    "fadd": 17 + 6 + 25 + 18 + 28,
     "shfl": 5 + 1 + 5,
     "ballot": 2,
-    "lds": 1 + 1 + 1 + 1,
-    "fdiv": 2,
+    "lds": 2 + 1 + 1,
+    "fdiv": 1 + 1 + 1,
     "offset": 1,
 }
 
@@ -177,15 +192,24 @@ def launcher(lib, blocks, n_valid, probe=None):
     return run
 
 
-def latencies(lib, dev) -> dict:
-    seed = torch.cat([torch.full((32,), 1.0 + 2.0 ** -20), torch.full((32,), 1.5)]).to(dev)
-    out = torch.zeros(len(LATENCY_KINDS), dtype=torch.int64, device=dev)
+def latencies(lib, dev, mhz: float) -> dict:
+    """Cycles a dependent operation of each kind: `latency_kernel`'s chain of
+    2^20 (a launch timed with CUDA events, less a launch of 16) at `mhz`."""
+    seed = torch.cat([torch.full((32,), 1.0 + 2.0 ** -20), torch.full((32,), 1.5),
+                      torch.arange(32.0)]).to(dev)
+    out = torch.zeros(32, device=dev)
     fn = lib.beat_track_latency_launch
-    fn.argtypes = [P, P, P]
-    for _ in range(2):  # the second run, warm
-        _build.check("latency", fn(_build.ptr(seed), _build.ptr(out), _build.stream_ptr(dev)))
-    torch.cuda.synchronize()
-    return {k: v / 64 for k, v in zip(LATENCY_KINDS, out.tolist())}
+    fn.argtypes = [P, I, I, P, P]
+
+    def run(kind, reps):
+        return lambda: _build.check(
+            "latency", fn(_build.ptr(seed), kind, reps, _build.ptr(out), _build.stream_ptr(dev)))
+
+    cycles = {}
+    for kind, name in enumerate(LATENCY_KINDS):
+        ms = time_ms(run(kind, 1 << 16), 3) - time_ms(run(kind, 1), 3)
+        cycles[name] = ms * 1e-3 * mhz * 1e6 / (1 << 20)
+    return cycles
 
 
 def series_5min(seed: int, dev):
@@ -228,16 +252,13 @@ def main() -> None:
     if args.against:
         other = args.against.resolve() / "bliss_tpu_torch" / "csrc" / "beat_track.cu"
         jobs["other"] = (other, [])
-        if "BLISS_BT_PROBE" in other.read_text():
+        if "beat_track_probe_launch" in other.read_text():
             jobs["other_probe"] = (other, PROBE_FLAGS)
     libs = build(jobs)
     for key in ("this", "other"):
         if key in libs:
             print(f"{key}: {sass_counts(libs[key][1])}", flush=True)
-    lat = latencies(libs["this_probe"][0], dev)
-    print("latency, cycles a dependent operation: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in lat.items()), flush=True)
-    floor_cycles = sum(n * lat[k] for k, n in CRITICAL_PATH.items())
+    lat = None
 
     consts = TP._bt_constants(dev, default_tables().on(dev))
     failed = False
@@ -253,9 +274,11 @@ def main() -> None:
               f"longest song {longest}", flush=True)
         runs = {}
         for key, (lib, _) in libs.items():
-            probe = None
+            probe, parts = None, ()
             if key.endswith("_probe"):
-                probe = torch.zeros((batch, len(PARTS) + 1), dtype=torch.int64, device=dev)
+                count = lib.beat_track_probe_parts() if hasattr(lib, "beat_track_probe_parts") else 9
+                parts = PARTS[count]
+                probe = torch.zeros((batch, count + 1), dtype=torch.int64, device=dev)
             runs[key] = launcher(lib, blocks, n_valid, probe)
             got = runs[key]()
             torch.cuda.synchronize()
@@ -265,15 +288,20 @@ def main() -> None:
             if probe is not None:
                 ms = time_ms(runs[key])
                 steps = n_valid.to(torch.int64).clamp(min=1)
-                per_step = (probe[:, : len(PARTS)].double() / steps.unsqueeze(1).double()).mean(0)
+                per_step = (probe[:, : len(parts)].double() / steps.unsqueeze(1).double()).mean(0)
                 total = probe[:, -1].double() / steps.double()
                 mhz = float(probe[:, -1].max()) / (ms * 1e3)
                 print(f"  {key}: {ms:.4f} ms ({ms * 1e3 / longest:.3f} us a step), "
                       f"{float(total.mean()):.0f} cycles a step in all, clock {mhz:.0f} MHz; a step "
                       "by part (cycles, mean over songs): "
-                      + ", ".join(f"{n} {v:.0f}" for n, v in zip(PARTS, per_step.tolist())),
+                      + ", ".join(f"{n} {v:.0f}" for n, v in zip(parts, per_step.tolist())),
                       flush=True)
                 if key == "this_probe":
+                    if lat is None:
+                        lat = latencies(lib, dev, mhz)
+                        print("  latency, cycles a dependent operation: "
+                              + ", ".join(f"{k} {v:.1f}" for k, v in lat.items()), flush=True)
+                    floor_cycles = sum(n * lat[k] for k, n in CRITICAL_PATH.items())
                     floor_ms = floor_cycles * longest / (mhz * 1e3)
                     print(f"  latency floor: {floor_cycles:.0f} cycles a step x {longest} blocks at "
                           f"{mhz:.0f} MHz = {floor_ms:.4f} ms ({floor_cycles / mhz:.3f} us a step) "

@@ -61,8 +61,9 @@ def stft(
         n_frames = int(n_frames_stft(t, hop_length))
     if route == "framed":
         frames = frame_signal_reflect(signal, lengths, window_length, hop_length, n_frames)
+        # contiguous: for one song the reshape is a view of overlapping rows
         mags = dft_kernels.ct_frames_mags(
-            frames.reshape(b * n_frames, window_length), window, twiddle
+            frames.reshape(b * n_frames, window_length).contiguous(), window, twiddle
         ).unflatten(1, (b, n_frames)).permute(1, 0, 2)
     else:
         padded = reflect_pad_signal(signal, lengths, window_length)

@@ -357,6 +357,9 @@ def beat_track(blocks: dict, n_valid_blocks: torch.Tensor):
         want = (batch, n_blocks) if width == 1 else (batch, n_blocks, width)
         if tuple(t.shape) != want:
             raise ValueError(f"beat_track: {name} has shape {tuple(t.shape)}, expected {want}")
+    for name in ("dfrev", "comb_u3", "comb_u4", "gwv_if3", "gwv_if4"):
+        if blocks[name].data_ptr() % 16:  # the kernel copies their rows 16 bytes at a time
+            raise ValueError(f"beat_track: {name} is not 16-byte aligned")
     _build.require("n_valid_blocks", n_valid_blocks, torch.int32, 1, dev)
     if n_valid_blocks.shape[0] != batch:
         raise ValueError(f"beat_track: n_valid_blocks has {n_valid_blocks.shape[0]} songs, expected {batch}")

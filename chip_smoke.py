@@ -26,11 +26,17 @@
    `beat_track` against its plain loop over blocks, bit for bit (each
    block's bp, beats and fired, and the tempo feature from each), at the
    batch's series and on edge cases (an all-silent song, a series with no
-   positive value, a song cut mid-way, one block, no valid block);
+   positive value, a song cut mid-way, one block, no valid block); the
+   block inputs' `autocorr` against its plain version bit for bit (a NaN
+   beside a NaN) at the batch's block rows and on edge rows (zeros, one
+   nonzero, +-inf and NaN, subnormals, overflow, Gaussian), timed beside
+   the Toeplitz `torch.matmul` route it replaced, with the peak memory of
+   each;
 5. drives `analyze_batch` (V2, then V1) on the card with the launch
    counts reset just before, fails if any kernel did not run, and times
-   each descriptor stage alone (the beat tracker's block inputs and its
-   kernel apart) and both tuning routes on the batch's
+   each descriptor stage alone (the beat tracker's block inputs, their
+   autocorrelation and the beat tracker's kernel apart; the block inputs'
+   peak memory beside the Toeplitz route's) and both tuning routes on the batch's
    spectra, equal bit for bit (`--profile` adds a torch.profiler trace of
    one batch: device busy share and the longest-running kernels);
 6. holds the card's f32 vectors against the port's CPU f64 path: on
@@ -38,7 +44,7 @@
    PIANO_V2) and on one synthetic song (<= 2e-2, same dominant chroma);
 7. long buckets, whose tuning takes the unfused route: on 8 synthetic
    7-minute songs (bucket 10,485,760) and 2 synthetic 21-minute songs
-   (bucket 29,360,128, B = 2; on this one `beat_track` too, as in 4) holds `bisect8_keys` (every level, both
+   (bucket 29,360,128, B = 2; on this one `beat_track` and `autocorr` too, as in 4) holds `bisect8_keys` (every level, both
    ranks, bit for bit), `bisect8` (the int8-plane entry of the same
    counting pass) and `histogram_int_plane` against their plain versions at
    full width and times them, the whole radix select (4 launches, counted)
@@ -76,8 +82,8 @@
    piano.wav and the batch;
 10. long song, full width: one synthetic 60-minute song (79,380,000
    samples, 8 shards of 10,485,760): holds every kernel of the sharded
-   path at the shapes that path gives it: `beat_track` on the song's
-   gathered series (B = 1, 2,560 blocks) as in 4, `ct_frames_mags` at one shard's
+   path at the shapes that path gives it: `beat_track` and `autocorr` on
+   the song's gathered series (B = 1, 2,560 blocks) as in 4, `ct_frames_mags` at one shard's
    `[4,757, 8192]` (first, middle and last shard), `frame_dft_mags` at
    `[8, 10,506,554]` and `timbral_fft` on the same halo-extended shards
    with its negative frame offset, each against its plain version (the
@@ -87,7 +93,7 @@
    against a sort and timed alone beside the sharded chroma stage and the
    radix select on the same plane, and `histogram_int_plane` on the sharded
    tuning plane; drives `parallel.longsong.sharded_analyze_samples` with the
-   counts reset (the five must launch), holds the vector against the
+   counts reset (the six must launch), holds the vector against the
    bucketed `analyze_batch` (B = 1) of the same song (<= 2e-5 per feature,
    tempo equal; up to the 1e-4 contract a gap is printed as a fault, above
    it the run fails), prints warm seconds and peak memory of both routes
@@ -409,7 +415,15 @@ def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
     }
     print("stages (ms, warm, each alone): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
-    print(f"  the block inputs' peak device memory above the series: "
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        TP.beat_track_inputs(thresh, h_valid, consts)
+        torch.cuda.synchronize()
+    n_ops = sum(1 for e in prof.events()
+                if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request")
+    print(f"  the block inputs: {n_ops} device ops; peak device memory above the series: "
           f"{peak_extra_gb(lambda: TP.beat_track_inputs(thresh, h_valid, consts)) * 1e3:.1f} MB "
           f"(the autocorrelation's Toeplitz route alone: "
           f"{peak_extra_gb(lambda: toeplitz_autocorr(rows)) * 1e3:.1f} MB)", flush=True)
@@ -1884,7 +1898,7 @@ def library_phase(seed: int, card: str, files: dict) -> None:
         _build.reset_launches()
         _, update_s = timed(lambda: user.update_library(trip))
         launches = dict(_build.LAUNCHES)
-        path_kernels = ("timbral_fft", "specflux", "ct_stft") + FUSED_ROUTE
+        path_kernels = ("timbral_fft", "specflux", "ct_stft", "beat_track", "autocorr") + FUSED_ROUTE
         if any(launches.get(k, 0) < 1 for k in path_kernels):
             failures.append(f"update_library did not launch every kernel of the path: {launches}")
         stored = user.songs_from_library()

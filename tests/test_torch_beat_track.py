@@ -226,6 +226,29 @@ def test_autocorr_plain_rounds_each_step_once():
     np.testing.assert_allclose(got[:, lags].numpy(), want, rtol=1e-12, atol=1e-15)
 
 
+def test_division_by_rounded_reciprocal_rounds_once():
+    """csrc/beat_track.cu:div_rn_by, the context weights' branch-free
+    division, in numpy f32 and the plain version's exact FMA: y = RN(1/b),
+    q = RN(a y), then twice q = RN(q + RN(a - b q) y), against numpy's f32
+    quotient (rounded once) on 10^6 pairs in the range the kernel checks
+    (`fast_quotient_range`): the weights' own numerators and denominators,
+    and significands drawn anywhere in it."""
+    rng = np.random.default_rng(5)
+    n = 500_000
+    d2 = np.concatenate([rng.uniform(-400, 400, n // 2),
+                         rng.integers(-300, 300, n // 2) + rng.uniform(0, 1, n // 2)]).astype(np.float32)
+    a = np.concatenate([(np.float32(-0.5) * d2) * d2,
+                        -(2.0 ** rng.uniform(-90, 90, n)).astype(np.float32)])
+    b = np.concatenate([rng.uniform(20, 140, n).astype(np.float32) * np.float32(0.125),
+                        (2.0 ** rng.uniform(-20, 20, n)).astype(np.float32)])
+    y = np.float32(1.0) / b
+    q = _t(a * y)
+    at, bt, yt = _t(a), _t(b), _t(y)
+    for _ in range(2):
+        q = TK._fma_f32(TK._fma_f32(-bt, q, at), yt, q)
+    np.testing.assert_array_equal(q.numpy().view(np.int32), (a / b).view(np.int32))
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_precompute_blocks_matches_jax(name):
     """Every block input of the port's `_precompute_blocks` against the JAX

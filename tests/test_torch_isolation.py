@@ -51,6 +51,66 @@ def test_scan_covers_every_package_of_the_port():
         assert any(p.parent == init.parent and p != init for p in PORT_FILES)
 
 
+TESTS = REPO / "tests"
+
+
+def _module_scope_imports(path: pathlib.Path):
+    """The modules a file imports at module scope: its top-level statements
+    and what they hold, but no function or class body."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (alias.name for alias in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                yield node.module
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                yield from walk(getattr(node, field, []))
+
+    yield from walk(ast.parse(path.read_text(), filename=str(path)).body)
+
+
+def _jax_at_module_scope(path: pathlib.Path, seen=()) -> list:
+    """jax/bliss_tpu imports at module scope, also through a test helper
+    module of tests/ that the file imports there."""
+    bad = []
+    for module in _module_scope_imports(path):
+        if _forbidden(module):
+            bad.append(module)
+        elif (TESTS / f"{module}.py").exists() and module not in seen:
+            bad += [f"{module} -> {m}" for m in _jax_at_module_scope(TESTS / f"{module}.py", (*seen, module))]
+    return bad
+
+
+def _holds_cuda_marker(path: pathlib.Path) -> bool:
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Attribute) and node.attr == "cuda":
+            if isinstance(node.value, ast.Attribute) and node.value.attr == "mark":
+                return True
+    return False
+
+
+CUDA_TEST_FILES = [p for p in sorted(TESTS.glob("test_torch_*.py")) if _holds_cuda_marker(p)]
+
+
+@pytest.mark.parametrize("path", CUDA_TEST_FILES, ids=lambda p: p.name)
+def test_cuda_test_modules_import_no_jax_at_module_scope(path):
+    """A test module with `cuda` cases collects on the card's host, which has
+    no JAX: it imports `jax` and `bliss_tpu` only inside its JAX
+    comparisons (`python3 -m pytest --noconftest -m cuda tests/test_torch_*.py`)."""
+    assert not _jax_at_module_scope(path), path.name
+
+
+def test_module_scope_rule():
+    """The scan sees through top-level blocks and a helper module, and not
+    into function bodies; the cuda-marked modules are all found."""
+    assert _jax_at_module_scope(TESTS / "test_torch_library.py")  # via test_library_ref
+    assert not _jax_at_module_scope(TESTS / "test_torch_beat_track.py")
+    assert "test_torch_beat_track.py" in {p.name for p in CUDA_TEST_FILES}
+    assert len(CUDA_TEST_FILES) >= 9 and not _holds_cuda_marker(TESTS / "test_torch_models.py")
+
+
 def test_forbidden_rule():
     assert _forbidden("jax.numpy") and _forbidden("bliss_tpu.ops.windows")
     assert not _forbidden("bliss_tpu_torch.ops") and not _forbidden("torch")
@@ -152,6 +212,9 @@ def test_cuda_path_is_f32_only():
         ("tuning.cu", "tuning_select_launch"),
         ("beat_track.cu", "bliss_tpu/models/tempo.py:760 lax.scan (_bt_do/_checkstate)"),
         ("beat_track.cu", "beat_track_launch"),
+        ("autocorr.cu", "bliss_tpu/models/tempo.py:236 _autocorr"),
+        ("autocorr.cu", "autocorr_launch"),
+        ("autocorr.cu", "Bound on the card: operations"),
     ],
 )
 def test_kernel_sources_name_what_they_replace(source, replaces):
@@ -290,6 +353,31 @@ def test_fused_tuning_route_is_the_peak_list_and_select():
                  "bisect16_pair_launch", "hist_threshold_launch"):
         assert gone not in text, gone
     assert "cub/" not in text and "thrust" not in text
+
+
+def test_tempo_block_inputs_have_no_toeplitz_gather():
+    """The block inputs' autocorrelation is the `autocorr` kernel's wrapper:
+    models/tempo.py gathers no Toeplitz matrix and multiplies no matrices,
+    and the kernel sums in XLA's order (8 partials, one FMA a term)."""
+    text = (REPO / "bliss_tpu_torch" / "models" / "tempo.py").read_text()
+    assert "toeplitz" not in text.lower() and "matmul" not in text and "@" not in text
+    assert "acfs = autocorr(dfframes.contiguous())" in text
+    cu = (REPO / "bliss_tpu_torch" / "csrc" / "autocorr.cu").read_text()
+    body = _device_body(cu, "lag_sum")
+    assert body.count("__fmaf_rn(") == 2 and "__fdiv_rn(" in body and "kLanes = 8" in cu
+
+
+def test_beat_track_step_design():
+    """#11's step: block inputs through a cp.async ring in shared memory (no
+    register copy of the next block), the phase sum's offsets once a step
+    on 21 lanes, one shuffle chain and a ballot for each last maximum."""
+    text = (REPO / "bliss_tpu_torch" / "csrc" / "beat_track.cu").read_text()
+    body = _kernel_body(text, "beat_track_kernel")
+    assert "issue_block(" in body and "cp_async_wait<kStages - 1>()" in body
+    assert "nxt" not in body and "load_block" not in text
+    assert "__shfl_sync(kFull, my_off, kk)" in body and body.count("last_max(") == 2
+    assert "any_nan(" not in text and "last_index_of(" not in text
+    assert "__ballot_sync" in _device_body(text, "last_max")
 
 
 def test_every_kernel_source_is_built():
