@@ -62,7 +62,7 @@ from bliss_tpu_torch.tables import default_tables  # noqa: E402
 P, I = ctypes.c_void_p, ctypes.c_int
 PROBE_FLAGS = ["-DBLISS_BT_PROBE"]
 
-#: The probe's parts, in the order of its columns: PR 10's kernel has 9, this
+#: The probe's parts, in the order of its columns: the register-prefetch design has 9, this
 #: tree's 10 (the ring's copy and its wait apart; the weights' quotients and
 #: exponentials run beside the phase sum and count there).
 PARTS = {

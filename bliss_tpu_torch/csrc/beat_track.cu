@@ -24,7 +24,7 @@
 // shared-memory writes and the reads). Blocks past a song's `n_valid` leave
 // its state as it is: bp stays, no beat fires.
 //
-// The design of a step, against the probe's reading of PR 10's
+// The design of a step, against the probe's reading of the earlier one's
 // (benches/beat_track_step.py, -DBLISS_BT_PROBE):
 //   - the inputs travel through a ring of kStages block slots in shared
 //     memory, filled kStages - 1 blocks ahead by cp.async (16 bytes a lane
@@ -38,7 +38,7 @@
 //     with no test; the rows i >= bp are set to 0 after the sum;
 //   - the last maximum of 128 or 160 values: one shuffle chain for the
 //     maximum, a ballot a register row for where it sits, the NaN test a
-//     vote beside them (PR 10 ran three chains one after the other);
+//     vote beside them (the earlier design ran three chains in a row);
 //   - the context weights' 8 quotients a lane share one denominator: its
 //     reciprocal is rounded once and each quotient corrected by FMA
 //     (div_rn_by), branch-free, so they and their exponentials run beside

@@ -585,7 +585,7 @@ def block_rows(thresh, h_valid):
 
 
 def toeplitz_autocorr(df, chunk: int = 256):
-    """The route `autocorr` replaced (PR 1-10's `models/tempo.py:_autocorr`):
+    """The route `autocorr` replaced (the port's earlier `models/tempo.py:_autocorr`):
     a gathered `[chunk, 512, 512]` Toeplitz matrix and `torch.matmul`, timed
     as the library call beside the kernel and used nowhere in the port."""
     n = df.shape[-1]

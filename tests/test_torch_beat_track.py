@@ -407,6 +407,55 @@ def test_cuda_autocorr_matches_plain(cuda, case):
         TK.autocorr(rows.transpose(0, -1))
 
 
+def _random_blocks(regime, dev, batch=4, n_blocks=64):
+    """Block inputs drawn directly, off any series, to reach the state
+    machine's rare paths: "random" (plausible ranges), "wide" (magnitudes
+    from 1e-30 to 1e30, either sign, periods down to 0: extreme peaks and
+    context weights out of the fast division's range) and "special" (NaN
+    and inf among them)."""
+    rng = np.random.default_rng(sum(map(ord, regime)))
+
+    def draw(*shape):
+        if regime == "wide":
+            return rng.choice([-1.0, 1.0], shape) * 10.0 ** rng.uniform(-30, 30, shape)
+        return np.abs(rng.standard_normal(shape))
+
+    blocks = {
+        "dfrev": draw(batch, n_blocks, TK.WINLEN), "comb_u3": draw(batch, n_blocks, TK.LAGLEN),
+        "comb_u4": draw(batch, n_blocks, TK.LAGLEN),
+        "gwv_if3": rng.uniform(0, 1, (batch, n_blocks, TK.LAGLEN)),
+        "gwv_if4": rng.uniform(0, 1, (batch, n_blocks, TK.LAGLEN)),
+        "rp_if3": rng.uniform(0 if regime == "wide" else 20, 140, (batch, n_blocks)),
+        "rp_if4": rng.uniform(0 if regime == "wide" else 20, 140, (batch, n_blocks)),
+    }
+    if regime == "special":
+        for name in ("dfrev", "comb_u3", "comb_u4", "gwv_if3", "rp_if4"):
+            v = blocks[name].reshape(-1)
+            at = rng.choice(v.size, max(1, v.size // 50), replace=False)
+            v[at] = rng.choice([np.nan, np.inf, -np.inf], at.size)
+    out = {k: torch.as_tensor(v.astype(np.float32), device=dev) for k, v in blocks.items()}
+    for name in ("ts_if3", "ts_if4"):
+        out[name] = torch.as_tensor(rng.choice([3, 4], (batch, n_blocks)).astype(np.int32), device=dev)
+    n_valid = torch.tensor([n_blocks, n_blocks - 7, n_blocks // 2, 1], dtype=torch.int32, device=dev)
+    return out, n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["random", "wide", "special"])
+def test_cuda_beat_track_matches_plain_on_drawn_blocks(cuda, regime):
+    """The kernel against the plain loop, bit for bit, on block inputs drawn
+    off any series (`_random_blocks`)."""
+    blocks, n_valid = _random_blocks(regime, cuda)
+    got = TK.beat_track(blocks, n_valid)
+    want = TK.beat_track_plain(blocks, n_valid)
+    torch.cuda.synchronize()
+    for label, g, w in zip(("bp", "beats", "fired"), got, want):
+        same = _bits(g) == _bits(w)
+        if g.dtype == torch.float32:
+            same |= torch.isnan(g) & torch.isnan(w)
+        assert bool(same.all()), label
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CASES)
 def test_cuda_beat_track_matches_plain(cuda, name):
