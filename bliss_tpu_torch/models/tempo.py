@@ -7,11 +7,11 @@ kernel launch, `ops/dft_kernels.specflux`), the adaptive threshold and the
 silence gates. The beat tracker runs in three parts, as the JAX package's
 `lax.scan` splits its carry from its outputs: the per-block quantities
 that do not depend on the hypothesis state, batched over `[B, NB]`
-(`_precompute_blocks`, its autocorrelation one kernel launch,
-`ops/tempo_kernels.autocorr`); the sequential state machine over blocks of 128
-hops (`ops/tempo_kernels.beat_track`: one kernel launch on the card, a
-loop over blocks on the CPU); and the per-beat firing and the median BPM,
-batched over `[B, NB, 8]` (`_tempo_from_beats`), which feed nothing back.
+(`ops/tempo_kernels.block_inputs`: one kernel launch on the card, the eager
+ops on the CPU); the sequential state machine over blocks of 128 hops
+(`ops/tempo_kernels.beat_track`: one kernel launch on the card, a loop over
+blocks on the CPU); and the per-beat firing and the median BPM, batched
+over `[B, NB, 8]` (`_tempo_from_beats`), which feed nothing back.
 """
 
 from __future__ import annotations
@@ -34,10 +34,10 @@ from ..ops.tempo_kernels import (  # noqa: F401 (re-export)
     _double_slow_tempi,
     _quad_peak_pos,
     _vec_max_elem,
-    autocorr,
     beat_track,
+    block_inputs,
 )
-from ..ops.windows import frame_signal, n_frames_strided
+from ..ops.windows import n_frames_strided
 from ..tables import beat_weights, bt_rayparam, tempo_geometry
 
 WINDOW_SIZE = 512  # src/temporal.rs:40
@@ -136,110 +136,18 @@ def silence_flags_blocked(signal: torch.Tensor, h_max: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _get_timesig(acf: torch.Tensor, gp_int: torch.Tensor) -> torch.Tensor:
-    """Time-signature estimate from the autocorrelation (src/aubio.rs:864-907)."""
-    n = acf.shape[-1]
-    k = torch.arange(-2, 2, device=acf.device)
-    gp = gp_int.unsqueeze(-1)
-
-    def gather(mult):
-        idx = mult * gp + k
-        ok = (idx >= 0) & (idx < n)
-        vals = torch.gather(acf, -1, torch.clamp(idx, 0, n - 1))
-        return torch.where(ok, vals, 0.0), ok
-
-    a3, ok3 = gather(3)
-    a6, ok6 = gather(6)
-    a4, ok4 = gather(4)
-    a2, ok2 = gather(2)
-    in_range = n > 6 * gp_int + 2
-    three_small = a3.sum(-1)
-    four_small = a4.sum(-1)
-    three_big = (torch.where(ok3, a3, 0.0) + torch.where(ok3 & ok6, a6, 0.0)).sum(-1)
-    four_big = (torch.where(ok4, a4, 0.0) + torch.where(ok4 & ok2, a2, 0.0)).sum(-1)
-    three = torch.where(in_range, three_small, three_big)
-    four = torch.where(in_range, four_small, four_big)
-    timesig = torch.where(three > four, 3, 4).to(torch.int32)
-    return torch.where(gp_int < 2, 4, timesig).to(torch.int32)
-
-
-def _precompute_blocks(thresh_masked: torch.Tensor, n_blocks: int, consts: _BTConstants):
-    """Per-block quantities that do not depend on the hypothesis state,
-    batched over `[B, NB]` (see bliss_tpu/models/tempo.py BlockInputs)."""
-    winlen, step, laglen = consts.winlen, consts.step, consts.laglen
-    dev = thresh_masked.device
-    # the detection-function buffer at run k is a strided window of the
-    # thresholded series (src/aubio.rs:1389-1416)
-    dfframes = frame_signal(
-        thresh_masked, winlen, step, offset=winlen - step + 1, n_frames=n_blocks
-    )  # [B, NB, winlen]
-    acfs = autocorr(dfframes.contiguous())  # [B, NB, winlen]
-    dfrevs = (dfframes * consts.dfwv).flip(-1)
-
-    i = torch.arange(laglen, device=dev)
-    interior = (i >= 1) & (i < laglen - 1)
-    contribs = []
-    for a in range(1, 5):
-        idx = i.unsqueeze(1) * a + torch.arange(1, 2 * a, device=dev).unsqueeze(0) - 1
-        valid = idx < winlen
-        vals = acfs[..., torch.clamp(idx, 0, winlen - 1)]  # [B, NB, laglen, 2a-1]
-        vals = torch.where(valid, vals, 0.0)
-        total = torch.zeros_like(vals[..., 0])
-        for t in range(2 * a - 1):  # from 0, left to right, as XLA's reduce adds
-            total = total + vals[..., t]
-        contribs.append(total * interior)
-    c1, c2, c3, c4 = contribs
-    w = [float(np.float32(1.0 / (2 * a - 1))) for a in range(1, 5)]
-    comb_w3 = c1 * w[0] + c2 * w[1] + c3 * w[2]
-    comb_w4 = comb_w3 + c4 * w[3]
-    comb_u3 = c1 + c2 + c3
-    comb_u4 = comb_u3 + c4
-
-    def rp_of(comb_w):
-        rayacf = comb_w * consts.rwv
-        maxindex = _vec_max_elem(rayacf)
-        interp = _quad_peak_pos(rayacf, maxindex)
-        return torch.where(
-            (maxindex > 0) & (maxindex < laglen - 1), interp, consts.rayparam_trunc
-        )
-
-    rp4 = rp_of(comb_w4)
-    rp3 = rp_of(comb_w3)
-    j = torch.arange(laglen, dtype=torch.float32, device=dev)
-
-    def gwv_of(rp):
-        diff = (j + 1.0) - rp.unsqueeze(-1)
-        return torch.exp(-0.5 * diff * diff / consts.g_var2)
-
-    return {
-        "dfrev": dfrevs,
-        "rp_if4": rp4,
-        "rp_if3": rp3,
-        "ts_if4": _get_timesig(acfs, rp4.to(torch.int32)),
-        "ts_if3": _get_timesig(acfs, rp3.to(torch.int32)),
-        "gwv_if4": gwv_of(rp4),
-        "gwv_if3": gwv_of(rp3),
-        "comb_u3": comb_u3,
-        "comb_u4": comb_u4,
-    }
-
-
 def beat_track_inputs(thresh: torch.Tensor, h_valid: torch.Tensor, consts: _BTConstants):
     """The state machine's inputs from the thresholded novelty `thresh
     [B, H]` (hops >= `h_valid [B]` masked): the block inputs `[B, NB, ...]`
     and each song's count of valid blocks, int32 `[B]`. Block k runs at
     hop 127 + 128 k, valid while that hop is below `h_valid`, so the valid
     blocks are the first `h_valid // 128`."""
-    step = consts.step
-    batch, h_max = thresh.shape
-    dev = thresh.device
-    n_blocks = (h_max - step) // step + 1
-    h_valid = torch.as_tensor(h_valid, device=dev)
-    thresh_masked = torch.where(
-        torch.arange(h_max, device=dev) < h_valid.unsqueeze(-1), thresh, 0.0
+    h_valid = torch.as_tensor(h_valid, device=thresh.device)
+    blocks = block_inputs(
+        thresh, h_valid, consts.rwv, consts.dfwv, consts.rayparam_trunc, consts.g_var2
     )
-    blocks = _precompute_blocks(thresh_masked, n_blocks, consts)
-    n_valid = torch.clamp(h_valid // step, 0, n_blocks).to(torch.int32)
+    n_blocks = blocks["dfrev"].shape[1]
+    n_valid = torch.clamp(h_valid // consts.step, 0, n_blocks).to(torch.int32)
     return blocks, n_valid
 
 

@@ -2,25 +2,29 @@
 over `_bt_do`/`_checkstate` in bliss_tpu/models/tempo.py, aubio's
 BeatTracking::do_ and ::checkstate, src/aubio.rs:966-1227).
 
+`block_inputs` computes the per-block quantities that do not depend on the
+state (the JAX package's `_precompute_blocks`, bliss_tpu/models/tempo.py
+BlockInputs) from the thresholded novelty series: on a CUDA tensor one
+launch of csrc/autocorr.cu (a block a row), on a CPU tensor
+`block_inputs_plain`, the eager ops. Its autocorrelation sums each lag in
+the order XLA's CPU backend compiles the JAX package's matmul into, and its
+other sums run left to right from 0 as XLA's reduce adds, so the port's
+block inputs equal the JAX package's bit for bit (the Gaussian weights'
+`exp` within an ulp). `autocorr` is that autocorrelation alone, the same
+device function's second entry point (`autocorr_plain` on a CPU tensor):
+no path calls it; it shows where a difference starts.
+
 `beat_track` walks every block of every song through the sequential state
 machine: on a CUDA tensor one launch of csrc/beat_track.cu (a warp a song,
 every block step on the card), on a CPU tensor `beat_track_plain`, a loop
 over blocks whose state carries a batch axis `[B]`, with every data
-dependent branch written as a `torch.where`. Its inputs are the per-block
-quantities that do not depend on the state (`models/tempo.py:
-_precompute_blocks`); what it returns feeds the per-beat firing and the
-median there.
+dependent branch written as a `torch.where`. What it returns feeds the
+per-beat firing and the median (`models/tempo.py:_tempo_from_beats`).
 
-Every step of the plain version rounds on its own, as eager PyTorch does
-on every device, and its one multi-term sum (the beat phase's `phout`,
-over the comb's 21 lags) runs left to right: the kernel repeats that
-arithmetic op for op, so the two agree bit for bit on the card.
-
-`autocorr` is the block inputs' autocorrelation (the JAX package's
-`_autocorr`, an XLA matmul): on a CUDA tensor one launch of
-csrc/autocorr.cu, on a CPU tensor `autocorr_plain`. Both sum each lag in
-the order XLA's CPU backend compiles that matmul into, so the port's
-block inputs equal the JAX package's bit for bit.
+Every step of a plain version rounds on its own, as eager PyTorch does on
+every device, and its multi-term sums run in a fixed order: the kernels
+repeat that arithmetic op for op, so each agrees with its plain version
+bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .windows import frame_signal
 
 WINLEN = 512  # detection-function buffer (models/tempo.py:tempo_geometry at 22.05 kHz)
 STEP = WINLEN // 4  # hops between two runs of the tracker
@@ -43,7 +48,8 @@ MAX_PHASE_I = 160  # beat-phase loop bound: i < bp <= ~130
 CATCH_UP = 24  # `while beat + bp < 0` additions, bounded as the JAX package bounds them
 
 #: The per-block inputs, `[B, NB, width]` (width 1 dropped): f32 but the
-#: two time signatures (int32).
+#: two time signatures (int32). In this order the C entry points take them
+#: (`block_inputs_launch`'s outputs, `beat_track_launch`'s inputs).
 BLOCK_WIDTHS = {
     "dfrev": WINLEN, "comb_u3": LAGLEN, "comb_u4": LAGLEN,
     "gwv_if3": LAGLEN, "gwv_if4": LAGLEN,
@@ -81,10 +87,12 @@ def autocorr_plain(df: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     takes the terms j = w (mod 8) in increasing j, each a fused multiply-add
     rounded once; then ((p0+p1)+(p2+p3))+((p4+p5)+(p6+p7)) and one division.
     The terms j < i, which XLA adds as zero products, are skipped: they come
-    first in each partial, while it is still +0, and +0 + +-0 is +0 (with
-    an inf or NaN at j < i, XLA's 0 * inf would be NaN; aubio's own loop
-    skips them too). Other dtypes (the CPU's f64 path) add in the
-    same order without the single rounding. Rows in chunks of `chunk`."""
+    first in each partial, while it is still +0, and +0 + +-0 is +0. But
+    XLA's 0 * inf and 0 * NaN are NaN: lag i is NaN wherever the row holds
+    an inf or NaN at some j < i (aubio's own loop skips those terms; the
+    JAX package's product does not). Other dtypes (the CPU's f64 path) add
+    in the same order without the single rounding. Rows in chunks of
+    `chunk`."""
     n = df.shape[-1]
     rows = df.reshape(-1, n)
     dev = df.device
@@ -108,13 +116,18 @@ def autocorr_plain(df: torch.Tensor, chunk: int = 256) -> torch.Tensor:
         )
         out.append(s)
     acf = torch.cat(out).reshape(df.shape)
-    return acf / (n - torch.arange(n, dtype=df.dtype, device=dev))
+    acf = acf / (n - torch.arange(n, dtype=df.dtype, device=dev))
+    # a zero product 0 * inf or 0 * NaN at some j < i
+    bad = (~torch.isfinite(df)).to(torch.int32)
+    past_bad = (torch.cumsum(bad, -1) - bad) > 0
+    return torch.where(past_bad, float("nan"), acf)
 
 
 def autocorr(df: torch.Tensor) -> torch.Tensor:
     """`autocorr_plain`'s function over `[..., 512]`: one launch of
-    csrc/autocorr.cu on a CUDA f32 tensor (a block a row), the plain version
-    on a CPU tensor."""
+    csrc/autocorr.cu's `autocorr_launch` on a CUDA f32 tensor (a block a
+    row, `block_inputs`' own autocorrelation), the plain version on a CPU
+    tensor. On no path: `block_inputs` holds it."""
     if not _build.on_cuda(df):
         return autocorr_plain(df)
     _build.require("autocorr", df, torch.float32, df.dim(), df.device)
@@ -128,6 +141,189 @@ def autocorr(df: torch.Tensor) -> torch.Tensor:
     _build.check("autocorr", fn(_build.ptr(df), _build.ptr(acf), rows, _build.stream_ptr(df.device)))
     _build.count_launch("autocorr")
     return acf
+
+
+def _sum_left_to_right(vals: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis from 0, left to right, as XLA's reduce
+    adds on the CPU (and in a fixed order on every device)."""
+    total = torch.zeros_like(vals[..., 0])
+    for t in range(vals.shape[-1]):
+        total = total + vals[..., t]
+    return total
+
+
+def n_blocks_of(n_hops: int, step: int = STEP) -> int:
+    """Blocks of a series of `n_hops` hops: block k runs at hop 127 + 128 k."""
+    return (n_hops - step) // step + 1
+
+
+def block_rows(thresh: torch.Tensor, h_valid: torch.Tensor, winlen: int = WINLEN) -> torch.Tensor:
+    """The detection-function buffer of every block, `[B, NB, winlen]`: a
+    strided window of the thresholded series `thresh [B, H]` masked past
+    `h_valid [B]` (src/aubio.rs:1389-1416): block k's slot s holds
+    `thresh[s + step k - (winlen - step + 1)]`, 0 outside the valid hops."""
+    step = winlen // 4
+    h = thresh.shape[-1]
+    masked = torch.where(
+        torch.arange(h, device=thresh.device) < h_valid.unsqueeze(-1), thresh, 0.0
+    )
+    return frame_signal(masked, winlen, step, offset=winlen - step + 1, n_frames=n_blocks_of(h, step))
+
+
+def _get_timesig(acf: torch.Tensor, gp_int: torch.Tensor) -> torch.Tensor:
+    """Time-signature estimate from the autocorrelation (src/aubio.rs:864-907),
+    each sum of four left to right from 0."""
+    n = acf.shape[-1]
+    k = torch.arange(-2, 2, device=acf.device)
+    gp = gp_int.unsqueeze(-1)
+
+    def gather(mult):
+        idx = mult * gp + k
+        ok = (idx >= 0) & (idx < n)
+        vals = torch.gather(acf, -1, torch.clamp(idx, 0, n - 1))
+        return torch.where(ok, vals, 0.0), ok
+
+    a3, ok3 = gather(3)
+    a6, ok6 = gather(6)
+    a4, ok4 = gather(4)
+    a2, ok2 = gather(2)
+    in_range = n > 6 * gp_int + 2
+    three_small = _sum_left_to_right(a3)
+    four_small = _sum_left_to_right(a4)
+    three_big = _sum_left_to_right(torch.where(ok3, a3, 0.0) + torch.where(ok3 & ok6, a6, 0.0))
+    four_big = _sum_left_to_right(torch.where(ok4, a4, 0.0) + torch.where(ok4 & ok2, a2, 0.0))
+    three = torch.where(in_range, three_small, three_big)
+    four = torch.where(in_range, four_small, four_big)
+    timesig = torch.where(three > four, 3, 4).to(torch.int32)
+    return torch.where(gp_int < 2, 4, timesig).to(torch.int32)
+
+
+def gaussian_weights(rp: torch.Tensor, laglen: int, g_var2: float) -> torch.Tensor:
+    """`exp(-0.5 (j + 1 - rp)^2 / g_var2)` over the lags j `[..., laglen]`,
+    the flagconst weight vector of a period `rp [...]` (src/aubio.rs:
+    1167-1205). The divisor is a 0-dim tensor on rp's device, so the
+    quotient is rounded once on the card too: PyTorch's CUDA division by a
+    Python number multiplies by its rounded reciprocal."""
+    j = torch.arange(laglen, dtype=torch.float32, device=rp.device)
+    diff = (j + 1.0) - rp.unsqueeze(-1)
+    g2 = torch.tensor(g_var2, dtype=diff.dtype, device=rp.device)
+    return torch.exp(-0.5 * diff * diff / g2)
+
+
+def blocks_from_acf(
+    dfframes: torch.Tensor,
+    acfs: torch.Tensor,
+    rwv: torch.Tensor,
+    dfwv: torch.Tensor,
+    rayparam_trunc: float,
+    g_var2: float,
+) -> dict:
+    """The block inputs (`BLOCK_WIDTHS`) from the block rows `[B, NB, winlen]`
+    and their autocorrelation: the comb, both period candidates, both time
+    signatures and both Gaussian weight vectors, as eager ops."""
+    winlen, laglen = dfframes.shape[-1], rwv.shape[-1]
+    dev = dfframes.device
+    dfrevs = (dfframes * dfwv).flip(-1)
+
+    i = torch.arange(laglen, device=dev)
+    interior = (i >= 1) & (i < laglen - 1)
+    contribs = []
+    for a in range(1, 5):
+        idx = i.unsqueeze(1) * a + torch.arange(1, 2 * a, device=dev).unsqueeze(0) - 1
+        valid = idx < winlen
+        vals = acfs[..., torch.clamp(idx, 0, winlen - 1)]  # [B, NB, laglen, 2a-1]
+        vals = torch.where(valid, vals, 0.0)
+        # a multiply, not a select: total * 0 is -0 or NaN as the JAX package's is
+        contribs.append(_sum_left_to_right(vals) * interior)
+    c1, c2, c3, c4 = contribs
+    w = [float(np.float32(1.0 / (2 * a - 1))) for a in range(1, 5)]
+    comb_w3 = c1 * w[0] + c2 * w[1] + c3 * w[2]
+    comb_w4 = comb_w3 + c4 * w[3]
+    comb_u3 = c1 + c2 + c3
+    comb_u4 = comb_u3 + c4
+
+    def rp_of(comb_w):
+        rayacf = comb_w * rwv
+        maxindex = _vec_max_elem(rayacf)
+        interp = _quad_peak_pos(rayacf, maxindex)
+        return torch.where((maxindex > 0) & (maxindex < laglen - 1), interp, rayparam_trunc)
+
+    rp4 = rp_of(comb_w4)
+    rp3 = rp_of(comb_w3)
+    return {
+        "dfrev": dfrevs,
+        "rp_if4": rp4,
+        "rp_if3": rp3,
+        "ts_if4": _get_timesig(acfs, rp4.to(torch.int32)),
+        "ts_if3": _get_timesig(acfs, rp3.to(torch.int32)),
+        "gwv_if4": gaussian_weights(rp4, laglen, g_var2),
+        "gwv_if3": gaussian_weights(rp3, laglen, g_var2),
+        "comb_u3": comb_u3,
+        "comb_u4": comb_u4,
+    }
+
+
+def block_inputs_plain(
+    thresh: torch.Tensor,
+    h_valid: torch.Tensor,
+    rwv: torch.Tensor,
+    dfwv: torch.Tensor,
+    rayparam_trunc: float,
+    g_var2: float,
+) -> dict:
+    """The JAX package's `_precompute_blocks` (bliss_tpu/models/tempo.py
+    BlockInputs) of the thresholded novelty `thresh [B, H]`, hops >=
+    `h_valid [B]` masked: every block input `[B, NB, ...]` (`BLOCK_WIDTHS`)
+    as eager ops, the autocorrelation `autocorr_plain`."""
+    frames = block_rows(thresh, h_valid, dfwv.shape[-1])
+    return blocks_from_acf(frames, autocorr_plain(frames), rwv, dfwv, rayparam_trunc, g_var2)
+
+
+def block_inputs(
+    thresh: torch.Tensor,
+    h_valid: torch.Tensor,
+    rwv: torch.Tensor,
+    dfwv: torch.Tensor,
+    rayparam_trunc: float,
+    g_var2: float,
+) -> dict:
+    """`block_inputs_plain`'s function: one launch of csrc/autocorr.cu on
+    a CUDA f32 series (winlen 512, `rwv [128]` and `dfwv [512]` f32 on its
+    device, `h_valid` one count a song or one for all), the plain version on
+    a CPU tensor."""
+    if not _build.on_cuda(thresh):
+        return block_inputs_plain(thresh, h_valid, rwv, dfwv, rayparam_trunc, g_var2)
+    dev = thresh.device
+    _build.require("block_inputs", thresh, torch.float32, 2, dev)
+    _build.require("rwv", rwv, torch.float32, 1, dev)
+    _build.require("dfwv", dfwv, torch.float32, 1, dev)
+    if rwv.shape[0] != LAGLEN or dfwv.shape[0] != WINLEN:
+        raise ValueError(f"block_inputs: expected rwv [{LAGLEN}] and dfwv [{WINLEN}], got "
+                         f"{tuple(rwv.shape)} and {tuple(dfwv.shape)}")
+    batch, h = thresh.shape
+    h_valid = torch.as_tensor(h_valid, device=dev).to(torch.int64).expand(batch).contiguous()
+    n_blocks = max(n_blocks_of(h), 0)
+    out = {
+        name: torch.empty(
+            (batch, n_blocks) + ((width,) if width > 1 else ()),
+            dtype=torch.int32 if name.startswith("ts_") else torch.float32, device=dev,
+        )
+        for name, width in BLOCK_WIDTHS.items()
+    }
+    if batch * n_blocks == 0:
+        return out
+    fn = _build.function(
+        "autocorr", "block_inputs_launch",
+        [_P, _P, _I, _I, _I, _P, _P, ctypes.c_float, ctypes.c_float] + [_P] * 9 + [_P],
+    )
+    err = fn(
+        _build.ptr(thresh), _build.ptr(h_valid), batch, h, n_blocks, _build.ptr(rwv),
+        _build.ptr(dfwv), rayparam_trunc, g_var2,
+        *(_build.ptr(out[name]) for name in BLOCK_WIDTHS), _build.stream_ptr(dev),
+    )
+    _build.check("block_inputs", err)
+    _build.count_launch("block_inputs")
+    return out
 
 
 def _vec_max_elem(data: torch.Tensor) -> torch.Tensor:

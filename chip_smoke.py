@@ -27,16 +27,23 @@
    block's bp, beats and fired, and the tempo feature from each), at the
    batch's series and on edge cases (an all-silent song, a series with no
    positive value, a song cut mid-way, one block, no valid block); the
-   block inputs' `autocorr` against its plain version bit for bit (a NaN
-   beside a NaN) at the batch's block rows and on edge rows (zeros, one
+   block inputs' kernel `block_inputs` against its plain version, every
+   field bit for bit (a NaN beside a NaN) in one launch, at the batch's
+   series and on edge series (`block_input_edge_series`), timed beside
+   the plain version and the former eager route; what the plain route's
+   former Gaussian weights (a Python-number divisor) and time signature
+   sums (`.sum(-1)`) round otherwise on the card; and `autocorr`, the same
+   kernel's autocorrelation alone, on no path, against its plain version
+   bit for bit at the batch's block rows and on edge rows (zeros, one
    nonzero, +-inf and NaN, subnormals, overflow, Gaussian), timed beside
-   the Toeplitz `torch.matmul` route it replaced, with the peak memory of
-   each;
+   the Toeplitz `torch.matmul` route, with the peak memory of each;
 5. drives `analyze_batch` (V2, then V1) on the card with the launch
-   counts reset just before, fails if any kernel did not run, and times
-   each descriptor stage alone (the beat tracker's block inputs, their
-   autocorrelation and the beat tracker's kernel apart; the block inputs'
-   peak memory beside the Toeplitz route's) and both tuning routes on the batch's
+   counts reset just before each, fails if any kernel of the path did not
+   run or `block_inputs` ran other than once, and times each descriptor
+   stage alone (the beat tracker's block inputs through the kernel and
+   through the former eager route, the autocorrelation kernel and the beat
+   tracker's kernel apart; the block inputs' device ops, at most 5, and
+   peak memory beside the eager and Toeplitz routes') and both tuning routes on the batch's
    spectra, equal bit for bit (`--profile` adds a torch.profiler trace of
    one batch: device busy share and the longest-running kernels);
 6. holds the card's f32 vectors against the port's CPU f64 path: on
@@ -44,13 +51,15 @@
    PIANO_V2) and on one synthetic song (<= 2e-2, same dominant chroma);
 7. long buckets, whose tuning takes the unfused route: on 8 synthetic
    7-minute songs (bucket 10,485,760) and 2 synthetic 21-minute songs
-   (bucket 29,360,128, B = 2; on this one `beat_track` and `autocorr` too, as in 4) holds `bisect8_keys` (every level, both
+   (bucket 29,360,128, B = 2; on this one `beat_track`, `block_inputs`
+   and `autocorr` too, as in 4) holds `bisect8_keys` (every level, both
    ranks, bit for bit), `bisect8` (the int8-plane entry of the same
    counting pass) and `histogram_int_plane` against their plain versions at
    full width and times them, the whole radix select (4 launches, counted)
    beside `torch.nanquantile` and `torch.kthvalue`, drives `analyze_batch`
    with the counts reset (`bisect8_keys` and `histogram_int_plane` must
-   launch, the fused route's two must not), holds the unfused tuning
+   launch, `block_inputs` and `beat_track` once, the fused route's two
+   must not), holds the unfused tuning
    equal to the fused route's on the same spectra, and one 7-minute song's
    vector against the CPU f64 path (<= 2e-2, same dominant chroma);
 8. files: `io.batch.analyze_paths_batched` on the card over the drift
@@ -82,7 +91,7 @@
    piano.wav and the batch;
 10. long song, full width: one synthetic 60-minute song (79,380,000
    samples, 8 shards of 10,485,760): holds every kernel of the sharded
-   path at the shapes that path gives it: `beat_track` and `autocorr` on
+   path at the shapes that path gives it: `beat_track`, `block_inputs` and `autocorr` on
    the song's gathered series (B = 1, 2,560 blocks) as in 4, `ct_frames_mags` at one shard's
    `[4,757, 8192]` (first, middle and last shard), `frame_dft_mags` at
    `[8, 10,506,554]` and `timbral_fft` on the same halo-extended shards
@@ -93,7 +102,7 @@
    against a sort and timed alone beside the sharded chroma stage and the
    radix select on the same plane, and `histogram_int_plane` on the sharded
    tuning plane; drives `parallel.longsong.sharded_analyze_samples` with the
-   counts reset (the six must launch), holds the vector against the
+   counts reset (the six must launch, `block_inputs` once), holds the vector against the
    bucketed `analyze_batch` (B = 1) of the same song (<= 2e-5 per feature,
    tempo equal; up to the 1e-4 contract a gap is printed as a fault, above
    it the run fails), prints warm seconds and peak memory of both routes
@@ -157,6 +166,9 @@ PIANO_V2 = [
 #: and of the unfused one (longer buckets).
 FUSED_ROUTE = ("tuning_peaks", "tuning_select")
 UNFUSED_ROUTE = ("bisect8_keys", "histogram_int_plane")
+#: Kernels held at the main path's shapes that no path launches:
+#: `block_inputs` computes the autocorrelation itself.
+OFF_PATH = ("autocorr",)
 
 #: Fixtures whose true spectra sit below the f32 DFT noise floor (pure
 #: tones and dyads, tests/test_tpu_drift.py:_degenerate): held at 2e-2 and
@@ -183,6 +195,14 @@ BF16_TENSOR_OPS_PER_S = 989e12
 BT_BLOCK_BYTES = 1028 * 4
 BT_OUT_BYTES = 4 + 8 * 4 + 8
 BT_BLOCK_OPS = 128 * 2 + 256 * 6 + 160 * 21 + 256 * 2
+#: The block inputs' f32 operations a block row: the autocorrelation's
+#: 131,328 multiply-adds and 512 divisions, dfrev's 512 products, the comb
+#: (16 additions and 4 interior products a lag, the weighted sums' 7, the
+#: unweighted sums' 3, rayacf's 2, the maxima's 2) and both Gaussian weight
+#: vectors (6 a value, `exp` one). Their bytes: the series read once, 1,028
+#: words a row written.
+BI_ROW_OPS = 512 * 513 + 512 * 2 + 128 * (16 + 4 + 7 + 3 + 2 + 2) + 256 * 6
+BI_ROW_OUT_BYTES = 1028 * 4
 
 
 def fail(msg: str) -> None:
@@ -264,6 +284,22 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn`: `reps` calls captured in one CUDA
+    graph and replayed between CUDA events, so that the wrapper's host work,
+    which `time_ms` of back-to-back calls measures whenever it is the
+    slower, stays out of the window."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay, 3) / reps
+    del graph
+    return ms
 
 
 def bound(nbytes: float, ops: float):
@@ -385,7 +421,7 @@ def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
     thresh, silent, h_valid = tempo_series(xs, lens)
     consts = TP._bt_constants(dev, tab)
     blocks, n_valid = TP.beat_track_inputs(thresh, h_valid, consts)
-    rows = block_rows(thresh, h_valid)
+    rows = autocorr_rows(thresh, h_valid)
     spectrum = stft(xs, 8192, 2205, lens, frame_mask.shape[1])
     fused = CH.uses_fused_tuning(frame_mask.shape[1], torch.float32)
     tuning = CH._estimate_tuning_fused if fused else CH.estimate_tuning
@@ -400,10 +436,12 @@ def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
+    args = block_args(thresh, h_valid)
     stages = {
         "tempo": wall_ms(lambda: TP.tempo_feature(xs, lens, tab)),
         "tempo.beat_tracker": wall_ms(lambda: TP.tempo_from_series(thresh, silent, h_valid, consts)),
         "tempo.beat_tracker.precompute": wall_ms(lambda: TP.beat_track_inputs(thresh, h_valid, consts)),
+        "tempo.beat_tracker.precompute.eager": wall_ms(lambda: eager_block_inputs(*args)),
         "tempo.beat_tracker.precompute.autocorr": wall_ms(lambda: autocorr(rows)),
         "tempo.beat_tracker.kernel": wall_ms(lambda: beat_track(blocks, n_valid)),
         "timbral+zcr": wall_ms(lambda: (TB.spectral_features(xs, lens, tab), TB.zcr_feature(xs, lens))),
@@ -418,15 +456,25 @@ def stage_breakdown(x, lens, frame_mask, warm_up: bool = True) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        TP.beat_track_inputs(thresh, h_valid, consts)
+    def device_ops(fn, calls: int = 3) -> float:
         torch.cuda.synchronize()
-    n_ops = sum(1 for e in prof.events()
-                if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request")
-    print(f"  the block inputs: {n_ops} device ops; peak device memory above the series: "
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request") / calls
+
+    n_ops = device_ops(lambda: TP.beat_track_inputs(thresh, h_valid, consts))
+    n_eager = device_ops(lambda: eager_block_inputs(*args))
+    print(f"  the block inputs: {n_ops:g} device ops a call (the former eager route: {n_eager:g}); peak device "
+          f"memory above the series: "
           f"{peak_extra_gb(lambda: TP.beat_track_inputs(thresh, h_valid, consts)) * 1e3:.1f} MB "
-          f"(the autocorrelation's Toeplitz route alone: "
+          f"(the eager route {peak_extra_gb(lambda: eager_block_inputs(*args)) * 1e3:.1f} MB, the "
+          f"autocorrelation's Toeplitz route alone "
           f"{peak_extra_gb(lambda: toeplitz_autocorr(rows)) * 1e3:.1f} MB)", flush=True)
+    if n_ops > 5:
+        fail(f"the block inputs took {n_ops:g} device ops (at most 5: the kernel and n_valid's)")
 
 
 def profile_batch(batch, lengths) -> None:
@@ -568,20 +616,64 @@ def autocorr_edge_rows(dev) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in cases.items()}
 
 
+def block_input_edge_series(dev) -> dict:
+    """Thresholded series `[B, 1100]` f32 and `h_valid [B]` (8 blocks) that
+    reach the block inputs' rare paths: "nan and inf" (a NaN, an inf, a -inf
+    beside a NaN, and an inf past h_valid, which the mask removes: XLA's
+    zero products make every lag past the first non-finite value NaN);
+    "silent" (zeros, and a series masked whole by h_valid 0: a zero comb,
+    its last maximum at lag 127); "lag 1" (three adjacent spikes, (1, 2, 1),
+    and two: the comb's maximum at lag 1, rp < 2); "long period" (a spike
+    every 88 hops over a faint floor: rp >= 85, so 6 gp + 2 >= 512 and the
+    time signature's wide sums); "overflow" (values near 1e20, one song of
+    either sign: inf and NaN sums, the interior multiply's NaN at lags 0
+    and 127, rayacf's NaN); "signed" (Gaussian noise: negative comb totals,
+    -0 at lags 0 and 127)."""
+    rng = np.random.default_rng(12)
+    h = 1100
+
+    def noise(b, scale=1.0):
+        return (rng.standard_normal((b, h)) * scale).astype(np.float32)
+
+    cases = {}
+    x = np.abs(noise(4)) * 0.1
+    x[:, ::43] += 3.0
+    x[0, 300] = np.nan
+    x[1, 520] = np.inf
+    x[2, 700], x[2, 701] = -np.inf, np.nan
+    x[3, 1050] = np.inf
+    cases["nan and inf"] = (x, [h, h, h, 1000])
+    x = np.zeros((2, h), np.float32)
+    x[1] = np.abs(noise(1)[0])
+    cases["silent"] = (x, [h, 0])
+    x = np.zeros((2, h), np.float32)
+    x[0, 124:127] = (1.0, 2.0, 1.0)
+    x[1, 125:127] = (1.5, 0.5)
+    cases["lag 1"] = (x, [h, h])
+    x = np.abs(noise(2)) * 1e-3
+    x[0, 5::88] += 2.0
+    x[1, 40::88] += 1.0
+    cases["long period"] = (x, [h, h - 200])
+    x = noise(2, 1e20)
+    x[0] = np.abs(x[0])
+    cases["overflow"] = (x, [h, h])
+    cases["signed"] = (noise(3), [h, 900, 333])
+    return {k: (torch.as_tensor(v, device=dev), torch.as_tensor(hv, device=dev))
+            for k, (v, hv) in cases.items()}
+
+
 def same_floats(got, want) -> bool:
     """Bit for bit, a NaN equal to any NaN at the same place."""
     nan = torch.isnan(got) & torch.isnan(want)
     return got.shape == want.shape and bool(((got.view(torch.int32) == want.view(torch.int32)) | nan).all())
 
 
-def block_rows(thresh, h_valid):
-    """The autocorrelation's input `[B, NB, 512]`: the series masked past
-    `h_valid` and framed as `models/tempo.py:_precompute_blocks` frames it."""
-    from bliss_tpu_torch.ops.windows import frame_signal
+def autocorr_rows(thresh, h_valid):
+    """The autocorrelation's input `[B, NB, 512]`, contiguous: the block rows
+    of the series (`ops/tempo_kernels.block_rows`)."""
+    from bliss_tpu_torch.ops.tempo_kernels import block_rows
 
-    h = thresh.shape[1]
-    masked = torch.where(torch.arange(h, device=thresh.device) < h_valid.unsqueeze(-1), thresh, 0.0)
-    return frame_signal(masked, 512, 128, offset=512 - 128 + 1, n_frames=(h - 128) // 128 + 1).contiguous()
+    return block_rows(thresh, h_valid).contiguous()
 
 
 def toeplitz_autocorr(df, chunk: int = 256):
@@ -612,9 +704,9 @@ def peak_extra_gb(fn) -> float:
 
 def hold_autocorr(df, label: str, card: str) -> dict:
     """`autocorr` against its plain version on the card, bit for bit (a NaN
-    beside a NaN), timed (20 launches) beside the plain version, the
-    Toeplitz route it replaced (its library call) and its bound; returns
-    what `record` takes."""
+    beside a NaN), timed on the device (`graph_ms`) and a call at a time
+    beside the plain version, the Toeplitz route it replaced (its library
+    call) and its bound; returns what `record` takes."""
     from bliss_tpu_torch.ops import tempo_kernels as TK
 
     got = TK.autocorr(df)
@@ -626,7 +718,8 @@ def hold_autocorr(df, label: str, card: str) -> dict:
              f"plain {want[at].item()!r}")
     err = torch.where(torch.isnan(got), 0.0, (got - want).abs()).max().item()
     rows = df.numel() // 512
-    ms = time_ms(lambda: TK.autocorr(df), 20)
+    call_ms = time_ms(lambda: TK.autocorr(df), 20)
+    ms = graph_ms(lambda: TK.autocorr(df))
     plain_ms = time_ms(lambda: TK.autocorr_plain(df), 2)
     library_ms = time_ms(lambda: toeplitz_autocorr(df), 3)
     gb, lib_gb = peak_extra_gb(lambda: TK.autocorr(df)), peak_extra_gb(lambda: toeplitz_autocorr(df))
@@ -634,10 +727,157 @@ def hold_autocorr(df, label: str, card: str) -> dict:
     ops = rows * (512 * 513 // 2) * 2  # a multiply and an add a term
     bnd = bound(nbytes, ops)
     print(f"  autocorr {label}: {rows} rows, bit for bit with the plain version; kernel {ms:.4f} ms "
-          f"(+{gb * 1e3:.1f} MB), plain {plain_ms:.3f} ms, Toeplitz route {library_ms:.4f} ms "
-          f"(+{lib_gb * 1e3:.1f} MB), bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]", flush=True)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "nbytes": nbytes, "ops": ops, "rows": rows}
+          f"on the device, {call_ms:.4f} ms a call (+{gb * 1e3:.1f} MB), plain {plain_ms:.3f} ms, "
+          f"Toeplitz route {library_ms:.4f} ms (+{lib_gb * 1e3:.1f} MB), bound {bnd[0]:.4f} ms by "
+          f"{bnd[1]} [{card}]", flush=True)
+    return {"err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "nbytes": nbytes, "ops": ops, "rows": rows}
+
+
+def block_args(thresh, h_valid):
+    """`ops/tempo_kernels.block_inputs`' arguments for a series on the card,
+    as `models/tempo.py:beat_track_inputs` passes them."""
+    from bliss_tpu_torch.models import tempo as TP
+    from bliss_tpu_torch.tables import default_tables
+
+    dev = thresh.device
+    consts = TP._bt_constants(dev, default_tables().on(dev))
+    return (thresh, h_valid, consts.rwv, consts.dfwv, consts.rayparam_trunc, consts.g_var2)
+
+
+def eager_block_inputs(thresh, h_valid, rwv, dfwv, rayparam_trunc, g_var2):
+    """The block inputs as the former route computed them on the card: the
+    masked frames, `autocorr`'s kernel, then the eager ops
+    (`blocks_from_acf`); timed beside the kernel, used nowhere in the port."""
+    from bliss_tpu_torch.ops import tempo_kernels as TK
+
+    frames = autocorr_rows(thresh, h_valid)
+    return TK.blocks_from_acf(frames, TK.autocorr(frames), rwv, dfwv, rayparam_trunc, g_var2)
+
+
+def same_blocks(got, want) -> list:
+    """The block inputs' fields that differ (a NaN beside a NaN is equal),
+    each with the first index where it does."""
+    broken = []
+    for name in want:
+        g, w = got[name], want[name]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            broken.append(f"{name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+            continue
+        same = (g.view(torch.int32) == w.view(torch.int32)) if g.dtype == torch.float32 else g == w
+        if g.dtype == torch.float32:
+            same |= torch.isnan(g) & torch.isnan(w)
+        if not bool(same.all()):
+            at = tuple((~same).nonzero()[0].tolist())
+            broken.append(f"{name} first differs at {at}: kernel {g[at].item()!r}, plain {w[at].item()!r}")
+    return broken
+
+
+def hold_block_inputs(thresh, h_valid, label: str, card: str, plain_reps: int = 2) -> dict:
+    """`block_inputs` against its plain version on the card, every field bit
+    for bit (a NaN beside a NaN), in one launch; timed on the device
+    (`graph_ms`) and a call at a time (`time_ms`, the wrapper's host work
+    included) beside the plain version (the eager ops and `autocorr_plain`),
+    the former eager route (`eager_block_inputs`) and its bound; returns what
+    `record` takes."""
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.ops import tempo_kernels as TK
+
+    args = block_args(thresh, h_valid)
+    _build.reset_launches()
+    got = TK.block_inputs(*args)
+    launched = dict(_build.LAUNCHES)
+    want = TK.block_inputs_plain(*args)
+    torch.cuda.synchronize()
+    broken = same_blocks(got, want)
+    if launched != {"block_inputs": 1}:
+        broken.append(f"launches {launched}")
+    if broken:
+        fail(f"block_inputs {label} vs plain: " + "; ".join(broken))
+    err = 0.0  # every field bit for bit
+    call_ms = time_ms(lambda: TK.block_inputs(*args), 20)
+    ms = graph_ms(lambda: TK.block_inputs(*args))
+    plain_ms = time_ms(lambda: TK.block_inputs_plain(*args), plain_reps)
+    eager_ms = time_ms(lambda: eager_block_inputs(*args), 5)
+    batch, n_blocks = got["dfrev"].shape[:2]
+    rows = batch * n_blocks
+    nbytes = thresh.numel() * 4 + batch * 8 + (128 + 512) * 4 + rows * BI_ROW_OUT_BYTES
+    ops = rows * BI_ROW_OPS
+    bnd = bound(nbytes, ops)
+    print(f"  block_inputs {label}: {rows} rows, every field bit for bit with the plain version, "
+          f"one launch; kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a call, plain "
+          f"{plain_ms:.3f} ms, the former eager route (autocorr's kernel and the eager ops) "
+          f"{eager_ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]", flush=True)
+    return {"err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "eager_ms": eager_ms,
+            "nbytes": nbytes, "ops": ops, "rows": rows, "got": got}
+
+
+def hold_block_input_edges(dev) -> None:
+    """`block_inputs` on `block_input_edge_series`, bit for bit with the
+    plain version."""
+    from bliss_tpu_torch.ops import tempo_kernels as TK
+
+    series = block_input_edge_series(dev)
+    for name, (thresh, h_valid) in series.items():
+        args = block_args(thresh, h_valid)
+        broken = same_blocks(TK.block_inputs(*args), TK.block_inputs_plain(*args))
+        if broken:
+            fail(f"block_inputs edge series {name!r} vs plain: " + "; ".join(broken))
+    print(f"  block_inputs edge series ({', '.join(series)}): every field bit for bit with the "
+          "plain version", flush=True)
+
+
+def former_route_probe(thresh, silent, h_valid, blocks, card: str) -> None:
+    """What the plain route's former arithmetic did on the card, on these
+    block inputs: the Gaussian weights divided by a Python number, which
+    PyTorch's CUDA division turns into a product with the rounded
+    reciprocal; and the time signatures' sums of four as `.sum(-1)`, which
+    the card adds in an order of its own. Prints how many quotients,
+    weights and time signatures each rounds otherwise than the one division
+    and the sums left to right from 0, and whether the beat periods, beats
+    and tempo move with them; and how many of 2^20 rows of four
+    `.sum(-1)` adds otherwise than left to right."""
+    from bliss_tpu_torch.models import tempo as TP
+    from bliss_tpu_torch.ops import tempo_kernels as TK
+
+    dev = thresh.device
+    n_valid = torch.clamp(h_valid // TK.STEP, 0, blocks["dfrev"].shape[1]).to(torch.int32)
+    g_var2 = TP._bt_constants("cpu").g_var2
+    j = torch.arange(TK.LAGLEN, dtype=torch.float32, device=dev)
+    acf = TK.autocorr(autocorr_rows(thresh, h_valid))
+    left_to_right = TK._sum_left_to_right
+    former = dict(blocks)
+    n_q = n_w = ulps = n_ts = 0
+    for w in ("3", "4"):
+        diff = (j + 1.0) - blocks[f"rp_if{w}"].unsqueeze(-1)
+        num = -0.5 * diff * diff
+        q_former = num / g_var2
+        former[f"gwv_if{w}"] = torch.exp(q_former).contiguous()
+        n_q += int((num / torch.tensor(g_var2, device=dev) != q_former).sum())
+        n_w += int((former[f"gwv_if{w}"] != blocks[f"gwv_if{w}"]).sum())
+        gap = former[f"gwv_if{w}"].view(torch.int32).long() - blocks[f"gwv_if{w}"].view(torch.int32).long()
+        ulps = max(ulps, int(gap.abs().max()))
+        TK._sum_left_to_right = lambda v: v.sum(-1)  # the former sums, for this call only
+        try:
+            former[f"ts_if{w}"] = TK._get_timesig(acf, blocks[f"rp_if{w}"].to(torch.int32))
+        finally:
+            TK._sum_left_to_right = left_to_right
+        n_ts += int((former[f"ts_if{w}"] != blocks[f"ts_if{w}"]).sum())
+    now, then = TK.beat_track(blocks, n_valid), TK.beat_track(former, n_valid)
+    valid = torch.arange(blocks["dfrev"].shape[1], device=dev) < n_valid.unsqueeze(-1)
+    bp_moved = int(((now[0] != then[0]) & valid).sum())
+    beats_moved = int(((now[1] != then[1]) & valid.unsqueeze(-1)).sum())
+    t_now = TP._tempo_from_beats(*now, silent, h_valid, TK.STEP)
+    t_then = TP._tempo_from_beats(*then, silent, h_valid, TK.STEP)
+    rows = torch.randn((1 << 20, 4), generator=torch.Generator(dev).manual_seed(5), device=dev)
+    sum_moved = int((rows.sum(-1) != left_to_right(rows)).sum())
+    print(f"  the former plain route on the card: {n_q} of {2 * blocks['gwv_if3'].numel()} quotients "
+          f"and {n_w} weights otherwise (at most {ulps} ulps), {n_ts} of "
+          f"{2 * blocks['ts_if3'].numel()} time signatures otherwise; with both, {bp_moved} beat "
+          f"periods and {beats_moved} beats of valid blocks move, tempo "
+          f"{'equal' if torch.equal(t_now, t_then) else 'DIFFERS'}; `.sum(-1)` over "
+          f"{rows.shape[0]} random rows of four: {sum_moved} differ from left to right [{card}]",
+          flush=True)
 
 
 def hold_autocorr_edges(dev) -> None:
@@ -810,10 +1050,13 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
         held = hold_beat_track(*series, label, card)
         results["beat_track"][f"{n_songs}x{seconds / 60:g}min"] = {
             k: held[k] for k in ("ms", "plain_ms", "step_us")}
-        held = hold_autocorr(block_rows(series[0], series[2]), label, card)
+        held = hold_block_inputs(series[0], series[2], label, card)
+        results["block_inputs"][f"{n_songs}x{seconds / 60:g}min"] = {
+            k: held[k] for k in ("ms", "call_ms", "plain_ms", "eager_ms", "rows")}
+        held = hold_autocorr(autocorr_rows(series[0], series[2]), label, card)
         results["autocorr"][f"{n_songs}x{seconds / 60:g}min"] = {
-            k: held[k] for k in ("ms", "plain_ms", "library_ms", "rows")}
-        del series
+            k: held[k] for k in ("ms", "call_ms", "plain_ms", "library_ms", "rows")}
+        del series, held
     nfc = int(n_frames_stft(tpad, 2205))
     if CH.uses_fused_tuning(nfc, torch.float32):
         fail(f"{label}: bucket {tpad} ({nfc} frames) is within the fused budget")
@@ -970,7 +1213,8 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     print(f"  {label} batch V2: first {first_s:.3f} s, warm {warm_s:.3f} s = "
           f"{n_songs / warm_s:.2f} songs/s; launches {launches} [{card}]", flush=True)
     need = ("timbral_fft", "specflux", "ct_stft") + UNFUSED_ROUTE
-    if any(launches.get(k, 0) < 1 for k in need) or any(launches.get(k, 0) for k in FUSED_ROUTE):
+    if (any(launches.get(k, 0) < 1 for k in need) or any(launches.get(k, 0) for k in FUSED_ROUTE + OFF_PATH)
+            or launches.get("block_inputs") != 1 or launches.get("beat_track") != 1):
         fail(f"{label}: wrong kernels on the long bucket (counts {launches})")
     if record_json:
         for name in UNFUSED_ROUTE:
@@ -1469,10 +1713,13 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     series = LS._tempo_series(ext, shard_len, n, tab)
     held = hold_beat_track(*series, f"{minutes:g}-min song, gathered series", card)
     results["beat_track"][f"{minutes:g}min_song"] = {k: held[k] for k in ("ms", "plain_ms", "step_us")}
-    held = hold_autocorr(block_rows(series[0], series[2]), f"{minutes:g}-min song, gathered series", card)
+    held = hold_block_inputs(series[0], series[2], f"{minutes:g}-min song, gathered series", card)
+    results["block_inputs"][f"{minutes:g}min_song"] = {
+        k: held[k] for k in ("ms", "call_ms", "plain_ms", "eager_ms", "rows")}
+    held = hold_autocorr(autocorr_rows(series[0], series[2]), f"{minutes:g}-min song, gathered series", card)
     results["autocorr"][f"{minutes:g}min_song"] = {
-        k: held[k] for k in ("ms", "plain_ms", "library_ms", "rows")}
-    del series
+        k: held[k] for k in ("ms", "call_ms", "plain_ms", "library_ms", "rows")}
+    del series, held
     f_lo = (torch.arange(shards, device=dev) * shard_len + LS.HOP - 1) // LS.HOP
     # one launch a shard: the first shard (reflection around sample 0), the
     # last (reflection around the song's end), and one inside
@@ -1555,8 +1802,8 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     print(f"  sharded ({shards} shards): first {first_s:.3f} s, warm {warm_s:.3f} s, peak "
           f"{peak:.2f} GB; launches {launches} [{card}]", flush=True)
     need = ("ct_frames", "frame_dft_mags", "timbral_fft", "histogram_int_plane", "beat_track",
-            "autocorr")
-    if any(launches.get(k, 0) < 1 for k in need):
+            "block_inputs")
+    if any(launches.get(k, 0) < 1 for k in need) or launches["block_inputs"] != 1:
         fail(f"long song: kernels not launched on the sharded path (counts {launches})")
     for k in ("ct_frames", "frame_dft_mags"):
         results[k]["launches"] = launches[k]
@@ -1568,8 +1815,9 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     )
     print(f"  bucketed (B = 1): first {b_first:.3f} s, warm {b_warm:.3f} s, peak {b_peak:.2f} GB; "
           f"launches {b_launches} [{card}]", flush=True)
-    if b_launches.get("beat_track", 0) != 1:
-        fail(f"long song: the bucketed route launched beat_track {b_launches.get('beat_track', 0)} times")
+    if b_launches.get("beat_track", 0) != 1 or b_launches.get("block_inputs", 0) != 1:
+        fail(f"long song: the bucketed route launched beat_track {b_launches.get('beat_track', 0)} and "
+             f"block_inputs {b_launches.get('block_inputs', 0)} times")
     x1 = torch.as_tensor(buf, device=dev)
     lens1 = torch.as_tensor([n], device=dev)
     nfc = int(n_frames_stft(tpad, LS.HOP))
@@ -1898,7 +2146,7 @@ def library_phase(seed: int, card: str, files: dict) -> None:
         _build.reset_launches()
         _, update_s = timed(lambda: user.update_library(trip))
         launches = dict(_build.LAUNCHES)
-        path_kernels = ("timbral_fft", "specflux", "ct_stft", "beat_track", "autocorr") + FUSED_ROUTE
+        path_kernels = ("timbral_fft", "specflux", "ct_stft", "beat_track", "block_inputs") + FUSED_ROUTE
         if any(launches.get(k, 0) < 1 for k in path_kernels):
             failures.append(f"update_library did not launch every kernel of the path: {launches}")
         stored = user.songs_from_library()
@@ -2091,13 +2339,26 @@ def main() -> None:
     results["beat_track"]["step_us"] = held["step_us"]
     hold_beat_track_edges(dev, card)
     series = tempo_series(xs, lens)
-    held = hold_autocorr(block_rows(series[0], series[2]), f"{b} x {args.seconds / 60:g}-min", card)
+    held = hold_block_inputs(series[0], series[2], f"{b} x {args.seconds / 60:g}-min", card)
+    record(
+        "block_inputs", "bliss_tpu_torch/csrc/autocorr.cu",
+        "bliss_tpu/models/tempo.py:341 (_precompute_blocks with _autocorr :236 and _get_timesig "
+        ":289, XLA, no Pallas kernel)", held["err"], held["ms"], held["plain_ms"], held["nbytes"],
+        held["ops"], None,
+    )
+    results["block_inputs"].update(call_ms=held["call_ms"], eager_ms=held["eager_ms"])
+    former_route_probe(series[0], series[1], series[2], held.pop("got"), card)
+    hold_block_input_edges(dev)
+    held = hold_autocorr(autocorr_rows(series[0], series[2]), f"{b} x {args.seconds / 60:g}-min", card)
     del xs, series
     record(
         "autocorr", "bliss_tpu_torch/csrc/autocorr.cu",
         "bliss_tpu/models/tempo.py:236 (_autocorr, XLA matmul, no Pallas kernel)", held["err"],
         held["ms"], held["plain_ms"], held["nbytes"], held["ops"], held["library_ms"],
     )
+    results["autocorr"].update(
+        call_ms=held["call_ms"],
+        path="none: block_inputs computes it; held to show where a difference starts")
     hold_autocorr_edges(dev)
 
     # ---- the main path ---------------------------------------------------
@@ -2107,21 +2368,26 @@ def main() -> None:
     v2 = analyze_batch(batch, lengths, version=2, device="cuda")
     first_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    missing = [k for k in results if launches.get(k, 0) < 1]
+    missing = [k for k in results if k not in OFF_PATH and launches.get(k, 0) < 1]
     if missing:
         fail(f"kernels not launched on the main path: {missing} (counts {launches})")
-    if any(launches.get(k, 0) for k in UNFUSED_ROUTE):
-        fail(f"the 5-min bucket took the unfused tuning route (counts {launches})")
+    if any(launches.get(k, 0) for k in UNFUSED_ROUTE + OFF_PATH):
+        fail(f"the 5-min bucket took the unfused tuning route or an off-path kernel (counts {launches})")
+    if launches.get("block_inputs") != 1:
+        fail(f"the 5-min batch launched block_inputs {launches.get('block_inputs')} times, not once")
     for k in results:
-        results[k]["launches"] = launches[k]
+        results[k]["launches"] = launches.get(k, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     v2b = analyze_batch(batch, lengths, version=2, device="cuda")
     warm_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _build.reset_launches()
     t0 = time.perf_counter()
     v1 = analyze_batch(batch, lengths, version=1, device="cuda")
     v1_s = time.perf_counter() - t0
+    if _build.LAUNCHES.get("block_inputs") != 1 or _build.LAUNCHES.get("beat_track") != 1:
+        fail(f"the V1 batch launched the beat tracker's kernels {_build.LAUNCHES}")
     print(f"main path V2: {b} x {args.seconds:g} s songs, first {first_s:.3f} s, "
           f"warm {warm_s:.3f} s = {b / warm_s:.2f} songs/s, peak {peak_gb:.2f} GB; "
           f"V1 {v1_s:.3f} s; launches {launches} [{card}]", flush=True)

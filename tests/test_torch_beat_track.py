@@ -5,18 +5,21 @@ against `bliss_tpu`'s, on the CPU, over thresholded series made with numpy
 from fixed seeds.
 
 The block inputs' autocorrelation (`ops/tempo_kernels.autocorr`) equals the
-JAX package's `_autocorr` bit for bit, and so does every block input but
-the two Gaussian weight vectors, whose `exp` is XLA's on one side and
-PyTorch's on the other (within an ulp). The state machine is held on the
+JAX package's `_autocorr` bit for bit, and so does every block input of
+`block_inputs_plain` but the two Gaussian weight vectors, whose `exp` is
+XLA's on one side and PyTorch's on the other (within an ulp), on the cases'
+series and on edge series (non-finite values, silence, a comb peak at lag 1,
+a period past 85 hops, overflow). The state machine is held on the
 block inputs of the JAX package's own `_precompute_blocks`, so both sides
 walk the same inputs: the beat period after each block exact, the firing
 flags exact, the beats within 1e-5 (the JAX package sums the beat phase as
 a selection-matrix product, in XLA's order; the port adds the 21 lags left
 to right). The tempo feature is held exact. The tests marked `cuda` hold
-the two kernels against their plain versions bit for bit on the card and
-skip without one; this module imports JAX only inside its JAX
-comparisons, so they run there with `python3 -m pytest --noconftest -p
-no:cacheprovider -m cuda tests/test_torch_beat_track.py`.
+the three kernels against their plain versions bit for bit on the card,
+and the plain Gaussian weights against numpy's quotient, and skip without
+one; this module imports JAX only inside its JAX comparisons, so they run
+there with `python3 -m pytest --noconftest -p no:cacheprovider -m cuda
+tests/test_torch_beat_track.py`.
 """
 
 import functools
@@ -28,7 +31,6 @@ import torch
 from bliss_tpu_torch.models import tempo as TT
 from bliss_tpu_torch.ops import _build
 from bliss_tpu_torch.ops import tempo_kernels as TK
-from bliss_tpu_torch.ops.windows import frame_signal
 
 torch.set_num_threads(1)
 
@@ -164,11 +166,48 @@ def _block_rows(name):
     """Every block row `[rows, 512]` of a case's series, as
     `_precompute_blocks` frames it (hops past `h_valid` masked)."""
     thresh, _, h_valid = _series(name)
-    h = thresh.shape[1]
-    masked = torch.where(torch.arange(h) < _t(h_valid).unsqueeze(-1), _t(thresh), 0.0)
-    n_blocks = (h - STEP) // STEP + 1
-    frames = frame_signal(masked, TK.WINLEN, STEP, offset=TK.WINLEN - STEP + 1, n_frames=n_blocks)
-    return frames.reshape(-1, TK.WINLEN)
+    return TK.block_rows(_t(thresh), _t(h_valid)).reshape(-1, TK.WINLEN)
+
+
+def _edge_series(name):
+    """chip_smoke.py's edge series `name` on the CPU, as numpy (thresh
+    [B, 1100], h_valid [B] int64)."""
+    from chip_smoke import block_input_edge_series
+
+    thresh, h_valid = block_input_edge_series("cpu")[name]
+    return thresh.numpy(), h_valid.numpy().astype(np.int64)
+
+
+EDGES = ["nan and inf", "silent", "lag 1", "long period", "overflow", "signed"]
+
+
+def _plain_blocks(thresh, h_valid, dev="cpu"):
+    consts = TT._bt_constants(dev)
+    return TK.block_inputs_plain(
+        _t(thresh).to(dev), _t(h_valid).to(dev), consts.rwv, consts.dfwv,
+        consts.rayparam_trunc, consts.g_var2,
+    )
+
+
+def _assert_blocks_match_jax(got, want):
+    """Every field bit for bit (a NaN beside a NaN), but the Gaussian
+    weights, `exp` of an equal argument, whose `exp` is XLA's CPU
+    approximation on one side and PyTorch's on the other: those within one
+    ulp, and where XLA's gives 0 for a result below f32's smallest normal,
+    PyTorch's subnormal stands beside it."""
+    for field in TK.BLOCK_WIDTHS:
+        g, w = got[field], want[field]
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        if field.startswith("gwv_"):
+            ulps = (g.view(torch.int32).long() - w.view(torch.int32).long()).abs()
+            flushed = (w == 0.0) & (g < torch.finfo(torch.float32).tiny)
+            ok = (ulps <= 1) | flushed | (torch.isnan(g) & torch.isnan(w))
+            assert bool(ok.all()) and bool((g >= 0).all() | torch.isnan(g).any()), field
+        else:
+            same = _bits(g) == _bits(w)
+            if g.dtype == torch.float32:
+                same |= torch.isnan(g) & torch.isnan(w)
+            assert bool(same.all()), (field, int((~same).sum()))
 
 
 def _gaussian_rows(seed, rectified):
@@ -181,12 +220,14 @@ def _gaussian_rows(seed, rectified):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("rows", ["cases", "gaussian", "rectified"])
+@pytest.mark.parametrize("rows", ["cases", "gaussian", "rectified", "non-finite"])
 def test_autocorr_matches_jax(rows):
     """The port's f32 autocorrelation against `jax.vmap` of the JAX
     package's `_autocorr` (XLA's matmul on the CPU), bit for bit: every
     block row of the 8 cases (346 rows), 64 Gaussian rows, 64 rectified
-    Gaussian rows."""
+    Gaussian rows; and rows holding an inf or a NaN, where XLA's zero
+    products 0 * inf make every lag past the first such value NaN (a NaN
+    beside a NaN)."""
     import jax
     import jax.numpy as jnp
 
@@ -195,12 +236,25 @@ def test_autocorr_matches_jax(rows):
     if rows == "cases":
         df = torch.cat([_block_rows(name) for name in CASES])
         assert df.shape[0] == 346
+    elif rows == "non-finite":
+        df = _gaussian_rows(13, False)[:8].clone()
+        for r, (at, value) in enumerate([(0, np.inf), (100, np.inf), (300, np.nan), (511, -np.inf),
+                                         (7, -np.inf), (255, np.nan), (400, np.inf)]):
+            df[r, at] = value
+        df[6, 401] = -np.inf  # inf - inf inside the sums
     else:
         df = _gaussian_rows(11, rows == "rectified")
     got = TK.autocorr(df)
     want = np.asarray(jax.vmap(JT._autocorr)(jnp.asarray(df.numpy())))
     assert got.dtype == torch.float32 and got.shape == df.shape
-    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    nan = np.isnan(got.numpy()) & np.isnan(want)
+    np.testing.assert_array_equal(np.where(nan, 0, got.numpy().view(np.int32)),
+                                  np.where(nan, 0, want.view(np.int32)))
+    if rows == "non-finite":  # NaN past each row's first non-finite value; row 7 finite
+        first = [0, 100, 300, 511, 7, 255, 400]
+        for r, f in enumerate(first):
+            assert np.isnan(got[r, f + 1 :].numpy()).all() and not np.isfinite(got[r].numpy()).all()
+        assert np.isfinite(got[7].numpy()).all()
 
 
 def test_autocorr_plain_rounds_each_step_once():
@@ -251,17 +305,18 @@ def test_division_by_rounded_reciprocal_rounds_once():
 
 @pytest.mark.parametrize("name", CASES)
 def test_precompute_blocks_matches_jax(name):
-    """Every block input of the port's `_precompute_blocks` against the JAX
-    package's `BlockInputs`, song by song: equal bit for bit, but the
-    Gaussian weights `gwv_if3`/`gwv_if4`, `exp` of an equal argument, whose
-    `exp` is XLA's CPU approximation on one side and PyTorch's on the other:
-    those are held within one ulp, and where XLA's gives 0 for a result
-    below f32's smallest normal, PyTorch's subnormal stands beside it."""
+    """Every block input of the port's `block_inputs_plain` against the JAX
+    package's `_precompute_blocks` (`BlockInputs`), song by song: equal bit
+    for bit, but the Gaussian weights `gwv_if3`/`gwv_if4`, `exp` of an equal
+    argument, whose `exp` is XLA's CPU approximation on one side and
+    PyTorch's on the other: those are held within one ulp, and where XLA's
+    gives 0 for a result below f32's smallest normal, PyTorch's subnormal
+    stands beside it. `beat_track_inputs` counts the same valid blocks."""
     thresh, _, h_valid = _series(name)
     songs, n_valid = _jax_blocks(thresh, h_valid)
     want = _stack(songs)
-    consts = TT._bt_constants("cpu")
-    got, got_valid = TT.beat_track_inputs(_t(thresh), _t(h_valid), consts)
+    got = _plain_blocks(thresh, h_valid)
+    _, got_valid = TT.beat_track_inputs(_t(thresh), _t(h_valid), TT._bt_constants("cpu"))
     np.testing.assert_array_equal(got_valid.numpy(), n_valid)
     for field in TK.BLOCK_WIDTHS:
         g, w = got[field], want[field]
@@ -272,6 +327,33 @@ def test_precompute_blocks_matches_jax(name):
             assert bool(((ulps <= 1) | flushed).all()) and bool((g >= 0).all()), field
         else:
             np.testing.assert_array_equal(_bits(g).numpy(), _bits(w).numpy(), err_msg=field)
+
+
+@pytest.mark.parametrize("name", EDGES)
+def test_block_inputs_plain_matches_jax_on_edges(name):
+    """`block_inputs_plain` against the JAX package's `_precompute_blocks` on
+    chip_smoke.py's edge series, every field as in
+    `test_precompute_blocks_matches_jax` (a NaN beside a NaN), and each
+    series reaches what it names."""
+    thresh, h_valid = _edge_series(name)
+    songs, _ = _jax_blocks(thresh, h_valid)
+    got = _plain_blocks(thresh, h_valid)
+    _assert_blocks_match_jax(got, _stack(songs))
+    rp = torch.stack([got["rp_if3"], got["rp_if4"]])
+    trunc = TT._bt_constants("cpu").rayparam_trunc
+    if name == "nan and inf":  # NaN combs where the series is not finite; song 3's inf masked
+        assert bool(torch.isnan(got["comb_u3"][:3]).any()) and bool(torch.isfinite(got["comb_u3"][3]).all())
+    if name in ("silent", "overflow"):  # the maximum at lag 127, or a NaN: no interior peak
+        assert bool((rp == trunc).all()) and bool((got["ts_if3"] == 4).all())
+    if name == "overflow":
+        assert bool(torch.isnan(got["comb_u4"][..., 0]).any())  # inf * 0 at lag 0
+    if name == "lag 1":
+        assert bool(((rp >= 1.0) & (rp < 2.0)).any()) and bool((rp != rp.round()).any())
+    if name == "long period":
+        assert bool((rp >= 85.0).any())
+    if name == "signed":  # negative totals at the edge lag 127: c1 there is -0
+        acf = TK.autocorr(TK.block_rows(_t(thresh), _t(h_valid)))
+        assert bool((acf[..., 127] < 0).any())
 
 
 # ---------------------------------------------------------------------------
@@ -397,8 +479,11 @@ def test_cuda_autocorr_matches_plain(cuda, case):
     want = TK.autocorr_plain(rows)
     torch.cuda.synchronize()
     assert same_floats(got, want)
-    if case == "inf and NaN":
-        assert bool(torch.isnan(got).any()) and bool(torch.isfinite(got).any())
+    if case == "inf and NaN":  # every lag past a row's first inf or NaN is NaN
+        bad = ~torch.isfinite(rows)
+        first = torch.where(bad.any(-1), bad.to(torch.int8).argmax(-1), rows.shape[-1])
+        past = torch.arange(rows.shape[-1], device=cuda) > first.unsqueeze(-1)
+        assert bool(torch.isnan(got[past]).all()) and bool(past.any())
     with pytest.raises(ValueError):
         TK.autocorr(rows[..., :256])
     with pytest.raises(TypeError):
@@ -480,3 +565,142 @@ def test_cuda_beat_track_matches_plain(cuda, name):
         TK.beat_track(blocks, n_valid[:-1])
     with pytest.raises(TypeError):
         TK.beat_track(blocks, n_valid.to(torch.int64))
+
+
+def _drawn_series(regime, dev, batch=4, h=1700):
+    """Thresholded series `[batch, h]` drawn off any onset, and `h_valid`:
+    "random" (Gaussian, either sign), "wide" (magnitudes from 1e-30 to
+    1e30, either sign: subnormal products, overflowing sums) and "special"
+    (NaN and inf among rectified values)."""
+    rng = np.random.default_rng(sum(map(ord, regime)) + 1)
+    if regime == "wide":
+        x = rng.choice([-1.0, 1.0], (batch, h)) * 10.0 ** rng.uniform(-30, 30, (batch, h))
+    else:
+        x = rng.standard_normal((batch, h))
+    if regime == "special":
+        x = np.abs(x)
+        v = x.reshape(-1)
+        at = rng.choice(v.size, 12, replace=False)
+        v[at] = rng.choice([np.nan, np.inf, -np.inf], at.size)
+    h_valid = np.array([h, h - 77, h // 2, 300])[:batch]
+    return (torch.as_tensor(x.astype(np.float32), device=dev),
+            torch.as_tensor(h_valid, device=dev))
+
+
+def _assert_same_blocks(got, want):
+    for name in TK.BLOCK_WIDTHS:
+        g, w = got[name], want[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        same = _bits(g) == _bits(w)
+        if g.dtype == torch.float32:
+            same |= torch.isnan(g) & torch.isnan(w)
+        assert bool(same.all()), (name, tuple((~same).nonzero()[0].tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", [f"case {n}" for n in CASES] + [f"edge {n}" for n in EDGES]
+                         + ["drawn random", "drawn wide", "drawn special"])
+def test_cuda_block_inputs_matches_plain(cuda, source):
+    """The block-inputs kernel against `block_inputs_plain` on the card,
+    every field bit for bit (a NaN beside a NaN): the cases' series, the
+    edge series and series drawn off any onset; one launch; its outputs
+    contiguous, the wide ones 16-byte aligned, as `beat_track` takes them; what the
+    kernel does not take raises."""
+    kind, name = source.split(" ", 1)
+    if kind == "case":
+        thresh, _, h_valid = _series(name)
+        thresh, h_valid = _t(thresh).to(cuda), _t(h_valid).to(cuda)
+    elif kind == "edge":
+        thresh, h_valid = (_t(a).to(cuda) for a in _edge_series(name))
+    else:
+        thresh, h_valid = _drawn_series(name, cuda)
+    consts = TT._bt_constants(cuda)
+    args = (consts.rwv, consts.dfwv, consts.rayparam_trunc, consts.g_var2)
+    _build.reset_launches()
+    got = TK.block_inputs(thresh, h_valid, *args)
+    assert _build.LAUNCHES == {"block_inputs": 1}
+    want = TK.block_inputs_plain(thresh, h_valid, *args)
+    torch.cuda.synchronize()
+    _assert_same_blocks(got, want)
+    for name, t in got.items():  # beat_track copies the wide rows 16 bytes at a time
+        assert t.is_contiguous() and (TK.BLOCK_WIDTHS[name] == 1 or t.data_ptr() % 16 == 0), name
+    with pytest.raises(TypeError):
+        TK.block_inputs(thresh.double(), h_valid, *args)
+    with pytest.raises(ValueError):
+        TK.block_inputs(thresh, h_valid, consts.rwv[:64], *args[1:])
+
+
+def _gaussian_quotients(rp):
+    """numpy's f32 `(-0.5 diff) diff / g_var2` at each lag of each `rp`
+    (one rounding), and the product with the rounded reciprocal, as
+    PyTorch's CUDA division by a Python number computes it."""
+    g2 = np.float32(TT._bt_constants("cpu").g_var2)
+    diff = (np.arange(TK.LAGLEN, dtype=np.float32) + np.float32(1.0)) - rp[:, None]
+    num = (np.float32(-0.5) * diff) * diff
+    return num / g2, num * (np.float32(1.0) / g2)
+
+
+@pytest.mark.cuda
+def test_cuda_gaussian_weights_divide_once(cuda):
+    """The plain route's Gaussian weights on the card divide once: on the
+    rows where numpy's f32 quotient and the product with the rounded
+    reciprocal differ, `gaussian_weights` equals the card's `exp` of numpy's
+    quotient bit for bit, and the former route (a Python-number divisor)
+    does not; the same on the rp of every case's plain block inputs."""
+    rng = np.random.default_rng(3)
+    rp = np.concatenate([rng.uniform(1.0, 128.0, 4000), np.float32(43.0) + rng.integers(-30, 30, 50)])
+    rp = rp.astype(np.float32)
+    once, twice = _gaussian_quotients(rp)
+    rows = (once != twice).any(-1)
+    assert rows.sum() > 100
+    rp_c = torch.as_tensor(rp[rows], device=cuda)
+    want = torch.exp(torch.as_tensor(once[rows], device=cuda))
+    got = TK.gaussian_weights(rp_c, TK.LAGLEN, TT._bt_constants("cpu").g_var2)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    diff = (torch.arange(TK.LAGLEN, dtype=torch.float32, device=cuda) + 1.0) - rp_c.unsqueeze(-1)
+    former = torch.exp(-0.5 * diff * diff / TT._bt_constants("cpu").g_var2)
+    assert torch.equal(former, torch.exp(torch.as_tensor(twice[rows], device=cuda)))
+    assert not torch.equal(former, want)
+    for name in CASES:  # through the plain block inputs
+        thresh, _, h_valid = _series(name)
+        blocks = _plain_blocks(thresh, h_valid, cuda)
+        for w in ("3", "4"):
+            rp_b = blocks[f"rp_if{w}"].reshape(-1)
+            q = torch.as_tensor(_gaussian_quotients(rp_b.cpu().numpy())[0], device=cuda)
+            got_b = blocks[f"gwv_if{w}"].reshape(-1, TK.LAGLEN)
+            assert torch.equal(got_b.view(torch.int32), torch.exp(q).view(torch.int32)), (name, w)
+
+
+@pytest.mark.cuda
+def test_cuda_timesig_sums_left_to_right(cuda):
+    """The time signature's sums of four on the card run left to right from
+    0: on rows where the card's `.sum(-1)` (the former route) rounds
+    otherwise, `_get_timesig` equals numpy's left-to-right time signature,
+    and the former sums do not. Each row holds the same four values at
+    3 gp + k and, in another order, at 4 gp + k: a tie that only the order
+    of the additions decides."""
+    rng = np.random.default_rng(17)
+    n = 20000
+    gp = rng.integers(2, 84, n).astype(np.int32)  # 6 gp + 2 < 512: the sums of four
+    vals = rng.standard_normal((n, 4)) * 10.0 ** rng.integers(-3, 4, (n, 4))
+    vals = vals.astype(np.float32)
+    perm = np.stack([rng.permutation(4) for _ in range(n)])
+    acf = (rng.standard_normal((n, TK.WINLEN)) * 1e-3).astype(np.float32)
+    rows = np.arange(n)[:, None]
+    acf[rows, 3 * gp[:, None] + np.arange(-2, 2)] = vals
+    acf[rows, 4 * gp[:, None] + np.arange(-2, 2)] = np.take_along_axis(vals, perm, 1)
+    three = np.zeros(n, np.float32)
+    four = np.zeros(n, np.float32)
+    for k in range(-2, 2):
+        three = three + acf[np.arange(n), 3 * gp + k]
+        four = four + acf[np.arange(n), 4 * gp + k]
+    want = np.where(three > four, 3, 4)
+    acf_c, gp_c = torch.as_tensor(acf, device=cuda), torch.as_tensor(gp, device=cuda)
+    got = TK._get_timesig(acf_c, gp_c).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    # the former route: each sum of four a `.sum(-1)` (6 gp + 2 < 512, gp >= 2)
+    k = torch.arange(-2, 2, device=cuda)
+    former_three = torch.gather(acf_c, 1, 3 * gp_c.long().unsqueeze(-1) + k).sum(-1)
+    former_four = torch.gather(acf_c, 1, 4 * gp_c.long().unsqueeze(-1) + k).sum(-1)
+    former = torch.where(former_three > former_four, 3, 4).cpu().numpy()
+    assert (former != want).any()

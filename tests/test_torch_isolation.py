@@ -356,15 +356,19 @@ def test_fused_tuning_route_is_the_peak_list_and_select():
 
 
 def test_tempo_block_inputs_have_no_toeplitz_gather():
-    """The block inputs' autocorrelation is the `autocorr` kernel's wrapper:
+    """The block inputs are the `block_inputs` kernel's wrapper:
     models/tempo.py gathers no Toeplitz matrix and multiplies no matrices,
-    and the kernel sums in XLA's order (8 partials, one FMA a term)."""
+    and the kernel's autocorrelation sums in XLA's order (8 partials, one
+    FMA a term), a thread's 4 lags over one window of 16-byte loads."""
     text = (REPO / "bliss_tpu_torch" / "models" / "tempo.py").read_text()
     assert "toeplitz" not in text.lower() and "matmul" not in text and "@" not in text
-    assert "acfs = autocorr(dfframes.contiguous())" in text
+    assert "blocks = block_inputs(" in text and "autocorr" not in text
     cu = (REPO / "bliss_tpu_torch" / "csrc" / "autocorr.cu").read_text()
-    body = _device_body(cu, "lag_sum")
-    assert body.count("__fmaf_rn(") == 2 and "__fdiv_rn(" in body and "kLanes = 8" in cu
+    body = _device_body(cu, "lag_group")
+    assert body.count("__fmaf_rn(") == 2 and "__fdiv_rn(" in body and "kPartials = 8" in cu
+    assert body.count("load8(") == 4 and "kGroup = 4" in cu
+    assert "row_autocorr(" in _kernel_body(cu, "block_inputs_kernel")
+    assert "row_autocorr(" in _kernel_body(cu, "autocorr_kernel")
 
 
 def test_beat_track_step_design():
