@@ -186,7 +186,7 @@ def launcher(lib, blocks, n_valid, probe=None):
         tail.append(_build.ptr(probe))
 
     def run():
-        _build.check("beat_track", fn(*head, batch, n_blocks, *tail, _build.stream_ptr(dev)))
+        _build.launch("beat_track", fn, dev, *head, batch, n_blocks, *tail)
         return out
 
     return run
@@ -202,8 +202,7 @@ def latencies(lib, dev, mhz: float) -> dict:
     fn.argtypes = [P, I, I, P, P]
 
     def run(kind, reps):
-        return lambda: _build.check(
-            "latency", fn(_build.ptr(seed), kind, reps, _build.ptr(out), _build.stream_ptr(dev)))
+        return lambda: _build.launch("latency", fn, dev, _build.ptr(seed), kind, reps, _build.ptr(out))
 
     cycles = {}
     for kind, name in enumerate(LATENCY_KINDS):
@@ -226,9 +225,8 @@ def series_long(seed: int, minutes: float, dev):
     rng = np.random.default_rng(seed + 1)
     n = int(round(minutes * 60 * 22050))
     song = chip_smoke.synth_song(rng, n)
-    tab = default_tables().on(dev)
-    ext, shard_len = LS._extended_shards(song, n, bucket_length(n, 1 << 17), 8, dev)
-    return LS._tempo_series(ext, shard_len, n, tab)
+    ext, shard_len = LS._extended_shards(song, n, bucket_length(n, 1 << 17), 8, [dev])
+    return LS._tempo_series(ext, shard_len, n)
 
 
 def bits(t):

@@ -116,9 +116,9 @@ def main() -> None:
     def run_stft(lib):
         fn = lib.ct_stft_launch
         fn.argtypes, fn.restype = [p, i, ll, i, i, i, p, p, p, p, p], i
-        _build.check("variant", fn(
+        _build.launch("variant", fn, dev,
             _build.ptr(padded), batch, t_len, n_frames, HOP, 13, _build.ptr(win),
-            _build.ptr(tw[0]), _build.ptr(tw[1]), _build.ptr(out), _build.stream_ptr(dev)))
+            _build.ptr(tw[0]), _build.ptr(tw[1]), _build.ptr(out))
 
     want = DK.ct_stft_mags_plain(padded, W, HOP, n_frames).transpose(1, 2)
     label = f"ct_stft [{batch}, {t_len}] hop {HOP}, {batch * n_frames} frames"
@@ -147,9 +147,9 @@ def main() -> None:
         def run_frames(lib):
             fn = lib.ct_frames_launch
             fn.argtypes, fn.restype = [p, i, i, p, p, p, p, p], i
-            _build.check("variant", fn(
+            _build.launch("variant", fn, dev,
                 _build.ptr(frames), n, 13, _build.ptr(win), _build.ptr(tw[0]),
-                _build.ptr(tw[1]), _build.ptr(out), _build.stream_ptr(dev)))
+                _build.ptr(tw[1]), _build.ptr(out))
 
         want = DK.ct_frames_mags_plain(frames).transpose(0, 1)
         label = f"ct_frames [{n}, {W}]"

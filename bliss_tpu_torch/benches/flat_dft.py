@@ -140,7 +140,7 @@ def main() -> None:
 
         def run():
             ptrs = [_build.ptr(t) for t in (head[0], *tail)]
-            _build.check(key, fn(ptrs[0], *head[1:], *ptrs[1:], _build.stream_ptr(dev)))
+            _build.launch(key, fn, dev, ptrs[0], *head[1:], *ptrs[1:])
 
         return run
 

@@ -136,9 +136,9 @@ def main() -> None:
         def run(lib, dst=out):
             fn = getattr(lib, ENTRY[src])
             fn.argtypes, fn.restype = [p, i, ll, i, i, i, p, p, p, p, p], i
-            _build.check("variant", fn(
+            _build.launch("variant", fn, dev,
                 _build.ptr(x), batch, t, n_frames, hop, offset, _build.ptr(win),
-                _build.ptr(tw[0]), _build.ptr(tw[1]), _build.ptr(dst), _build.stream_ptr(dev)))
+                _build.ptr(tw[0]), _build.ptr(tw[1]), _build.ptr(dst))
 
         head = f"{src} {label} [{batch}, {t}] hop {hop} offset {offset}, {n_frames} frames"
         names = list(VARIANTS[src])

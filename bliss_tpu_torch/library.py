@@ -12,6 +12,15 @@ The SQLite database is also the checkpoint/resume story
 (src/library.rs:1000-1093): `update_library` only analyzes the
 set-difference against already-analyzed paths at the current features
 version, and every song commits in its own transaction.
+
+On a list of devices (`devices=`; the default is every visible card) the
+matrix is row-sharded as the JAX package shards it (bliss_tpu/library.py:
+1385-1395, 1446-1482): `N` padded to a multiple of the device count, one
+row block a device. A query computes each block's seed distances on its
+own device and gathers the `[N]` distances on the first device, which
+holds the whole matrix too and the dedup metadata; there the stable order,
+the dedup verdicts and `song_to_song`'s walk run as on one device, so
+every order and verdict equals the one-device `Library`'s.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import torch
 
 from .errors import BlissError, ProviderError
 from .features import NUMBER_FEATURES, FeaturesVersion
-from .models.analyzer import resolve_device
+from .models.analyzer import resolve_devices
+from .parallel.mesh import block_distances, gather, place_rows
 from .playlist import (
     DistanceMetricBuilder,
     FunctionDistanceMetric,
@@ -365,7 +375,7 @@ class _LibCache(NamedTuple):
     version: int
     songs: list
     mat: np.ndarray  # [N_pad, F], rows >= n are zero padding
-    dev: object  # `mat` on the library's device, uploaded on first query
+    dev: object  # `mat` on the first device, gathered on first query
     n: int
     path_index: dict  # str(path) -> row
     titles: np.ndarray  # [N] object
@@ -375,17 +385,20 @@ class _LibCache(NamedTuple):
     #: so the dedup metadata test is one integer compare per pair
     #: (src/playlist.rs:377-383)
     meta_ids: np.ndarray
-    dev_meta: object  # `meta_ids` on the device, uploaded with `dev`
+    dev_meta: object  # `meta_ids` on the first device, uploaded with `dev`
+    blocks: object  # `mat`'s row blocks, one a device, uploaded with `dev`
 
 
 class Library:
     """A collection of analyzed [Song]s backed by SQLite
     (src/library.rs:426-1750). Analysis and playlist queries run on
-    `device`, the card unless the caller asks for the CPU; a CUDA request
-    without a card raises."""
+    `devices` (default: `[device]`, else every visible card, raising
+    without one); `device` is the first of them."""
 
-    def __init__(self, config: BaseConfig, decoder_cls=None, create: bool = True, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, config: BaseConfig, decoder_cls=None, create: bool = True, device=None,
+                 devices=None):
+        self.devices = resolve_devices(devices, device)
+        self.device = self.devices[0]
         if decoder_cls is None:
             from .io.decoder import DefaultDecoder
 
@@ -413,8 +426,8 @@ class Library:
     # --- construction -----------------------------------------------------
 
     @classmethod
-    def new(cls, config: BaseConfig, decoder_cls=None, device="cuda") -> "Library":
-        return cls(config, decoder_cls, create=True, device=device)
+    def new(cls, config: BaseConfig, decoder_cls=None, device=None, devices=None) -> "Library":
+        return cls(config, decoder_cls, create=True, device=device, devices=devices)
 
     @classmethod
     def new_from_base(
@@ -423,7 +436,8 @@ class Library:
         database_path=None,
         analysis_options=None,
         decoder_cls=None,
-        device="cuda",
+        device=None,
+        devices=None,
     ) -> "Library":
         """Create a Library from a minimal configuration
         (src/library.rs:741-752)."""
@@ -432,14 +446,15 @@ class Library:
             database_path=database_path,
             analysis_options=analysis_options or AnalysisOptions(),
         )
-        return cls(config, decoder_cls, create=True, device=device)
+        return cls(config, decoder_cls, create=True, device=device, devices=devices)
 
     @classmethod
-    def from_config_path(cls, config_path=None, decoder_cls=None, device="cuda") -> "Library":
+    def from_config_path(cls, config_path=None, decoder_cls=None, device=None,
+                         devices=None) -> "Library":
         if config_path is None:
             config_path = BaseConfig().config_path
         config = BaseConfig.from_path(config_path)
-        return cls(config, decoder_cls, create=False, device=device)
+        return cls(config, decoder_cls, create=False, device=device, devices=devices)
 
     def _upgrade(self) -> None:
         """Schema creation / `pragma user_version` migrations
@@ -570,10 +585,11 @@ class Library:
 
     def _fused_order_dedup(self, initial, distance, mask, threshold=0.05):
         """(order, base_same) for the dedup path of `playlist_from[_custom]`:
-        `playlist._order_dedup` computes on the device the seed distances,
-        the masked stable sort, the row gather, consecutive-pair distances
-        and the dedup verdicts (distance < threshold OR equal non-null
-        metadata ids); only the order and the verdicts come back. Returns
+        the seed distances of each row block on its device
+        (`_seed_distances`), then `playlist._order_dedup` on the first: the
+        masked stable sort, the row gather, consecutive-pair distances and
+        the dedup verdicts (distance < threshold OR equal non-null metadata
+        ids); only the order and the verdicts come back. Returns
         None when the metric has no batched form (the caller then follows
         the generic pool + list-dedup path)."""
         songs, mat, n_real = self._cached_library()
@@ -588,7 +604,7 @@ class Library:
         order, base_same = _order_dedup(
             kind,
             x,
-            torch.as_tensor(np.stack(metric.vectors), device=self.device),
+            self._seed_distances(form, metric.vectors),
             None if m is None else torch.as_tensor(m, device=self.device),
             self._device_mask(mask),
             cache.dev_meta,
@@ -652,7 +668,7 @@ class Library:
         if form is not None:
             x = self._device_matrix()
             alive = self._device_mask(mask)
-            dists = metric.distances(x)
+            dists = self._seed_distances(form, metric.vectors)
         else:
             x = mat
             alive = self._device_mask(mask).cpu()
@@ -669,6 +685,9 @@ class Library:
         if not isinstance(distance, DistanceMetricBuilder):
             if n_alive > 1:
                 alive[first] = False
+                # the walk runs over the matrix gathered on the first
+                # device; a per-step argmin across the row blocks' devices
+                # is later work
                 chain = _device_greedy_chain(x, first, distance, alive, self.device)
                 if chain is None:
                     return None  # a function metric with no batched form
@@ -748,7 +767,7 @@ class Library:
         base = _DecoderProtocol.analyze_paths_with_options
         if getattr(impl, "__func__", impl) is getattr(base, "__func__", base):
             return analyze_paths_batched(
-                self.decoder_cls, paths, analysis_options, device=self.device
+                self.decoder_cls, paths, analysis_options, devices=self.devices
             )
         return impl(paths, analysis_options, device=self.device)
 
@@ -1153,7 +1172,8 @@ class Library:
                 (version,),
             ).fetchall()
         n = len(song_rows)
-        n_pad = max(n, 1)
+        n_dev = len(self.devices)
+        n_pad = -(-max(n, 1) // n_dev) * n_dev
         mat = np.zeros((n_pad, n_features), np.float32)
         if feat_rows or song_rows:
             pairs = np.asarray(feat_rows, np.float64)
@@ -1200,22 +1220,34 @@ class Library:
                 meta_ids[i] = pair_ids.setdefault((t, a), len(pair_ids))
         self._matrix_cache = _LibCache(
             version, songs, mat, None, n, path_index, titles, artists,
-            meta_ids, None,
+            meta_ids, None, None,
         )
         return songs, mat, n
 
     def _device_matrix(self) -> torch.Tensor:
-        """The cached feature matrix on the library's device, uploaded once
-        per cache (with the dedup metadata ids)."""
+        """The cached feature matrix on the first device, uploaded once per
+        cache as one row block a device and gathered there (with the dedup
+        metadata ids)."""
         self._cached_library()
         cache = self._matrix_cache
         if cache.dev is None:
+            blocks = place_rows(self.devices, cache.mat)
             cache = cache._replace(
-                dev=torch.from_numpy(cache.mat).to(self.device),
+                dev=blocks[0] if len(blocks) == 1 else gather(blocks, self.device),
                 dev_meta=torch.from_numpy(cache.meta_ids).to(self.device),
+                blocks=blocks,
             )
             self._matrix_cache = cache
         return cache.dev
+
+    def _seed_distances(self, form, vectors) -> torch.Tensor:
+        """`[N_pad]` distances of every row to the seed `vectors` by the
+        batched metric `form` (`_gemm_form`'s pair): each row block's on its
+        own device, gathered in row order on the first device."""
+        self._device_matrix()
+        kind, m = form
+        blocks = self._matrix_cache.blocks
+        return gather(block_distances(kind, blocks, np.stack(vectors), m), self.device)
 
     # --- storage ----------------------------------------------------------------
 

@@ -31,16 +31,47 @@ MIN_SAMPLES = chroma_model.WINDOW_SIZE  # 8192
 
 def resolve_device(device) -> torch.device:
     """The device to run on; a CUDA request without a card raises rather
-    than falling back to the CPU."""
+    than falling back to the CPU. A card comes back indexed (`cuda:N`, the
+    current one for a bare "cuda"), so "cuda" and "cuda:0" share every
+    per-device cache."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA requested but torch.cuda.is_available() is false; "
-            "pass device='cpu' to run the plain PyTorch path"
-        )
-    if device.type not in ("cuda", "cpu"):
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA requested but torch.cuda.is_available() is false; "
+                "pass device='cpu' to run the plain PyTorch path"
+            )
+        index = torch.cuda.current_device() if device.index is None else device.index
+        if index >= torch.cuda.device_count():
+            raise ValueError(f"no card {device}: {torch.cuda.device_count()} visible")
+        return torch.device("cuda", index)
+    if device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def resolve_devices(devices=None, device=None) -> list:
+    """The device list of a multi-device entry point: `devices` (entries
+    may repeat), else `[device]`, else every visible card, raising without
+    one. One list holds cards or the CPU, not both."""
+    if devices is not None and device is not None:
+        raise ValueError("pass devices or device, not both")
+    if devices is None:
+        if device is not None:
+            devices = [device]
+        elif not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA requested (every visible card) but torch.cuda.is_available() "
+                "is false; pass devices=['cpu'] to run the plain PyTorch path"
+            )
+        else:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    out = [resolve_device(d) for d in devices]
+    if not out:
+        raise ValueError("an empty device list")
+    if len({d.type for d in out}) > 1:
+        raise ValueError(f"a device list mixes the CPU and cards: {out}")
+    return out
 
 
 def _resolve_dtype(device: torch.device, dtype):

@@ -302,19 +302,32 @@ def _estimate_tuning_fused(
     return _tuning_from_counts(counts, counts.sum(1) > 0, resolution, spectrum.dtype)
 
 
+def _song_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`a @ b`, one product a song of the leading axis: cuBLAS picks its
+    kernel by the batch's size too, so a batched product would round a
+    song otherwise in a batch of another size."""
+    if a.dim() == 2:
+        return torch.matmul(a, b)
+    out = a.new_empty((*a.shape[:-1], b.shape[-1]))
+    for x, y, o in zip(a, b, out):
+        torch.matmul(x, y, out=o)
+    return out
+
+
 def _compensated_matmul(a: torch.Tensor, b: torch.Tensor, chunk: int = 512):
     """`a @ b` with the K axis split into chunks whose partial products are
     combined with Neumaier compensation (f32 only): the f32 accumulation
     error over K ~ 4097 would otherwise be amplified ~15x by the exp(15x)
-    sharpening downstream."""
+    sharpening downstream. Each product is a song's alone
+    (`_song_products`)."""
     k = a.shape[-1]
     if a.dtype == torch.float64 or k <= chunk:
-        return torch.matmul(a, b)
-    s = torch.matmul(a[..., :chunk], b[..., :chunk, :])
+        return _song_products(a, b)
+    s = _song_products(a[..., :chunk], b[..., :chunk, :])
     comp = torch.zeros_like(s)
     for lo in range(chunk, k, chunk):
         hi = min(lo + chunk, k)
-        p = torch.matmul(a[..., lo:hi], b[..., lo:hi, :])
+        p = _song_products(a[..., lo:hi], b[..., lo:hi, :])
         t = s + p
         comp = comp + torch.where(torch.abs(s) >= torch.abs(p), (s - t) + p, (p - t) + s)
         s = t

@@ -5,9 +5,11 @@ into `bliss_tpu_torch/build/lib<name>-<hash>.so` (a plain C interface,
 no PyTorch headers, so a build takes seconds) and loaded with `ctypes`.
 `build_all()` starts every compiler at once. A failed build raises.
 
-Launch counts live here too: every kernel wrapper calls
-`count_launch(name)` right where it launches its kernel, so a caller can
-reset the counts, drive the analysis and see which kernels ran.
+Every kernel wrapper launches through `launch`, which makes the tensors'
+device the current one around the call (the `<<<>>>` launch and the
+entries' attribute calls act on the calling thread's current device) and
+counts the launch, by kernel and by device, so a caller can reset the
+counts, drive the analysis and see which kernels ran where.
 """
 
 from __future__ import annotations
@@ -36,16 +38,21 @@ SOURCES = (
 )
 
 LAUNCHES: dict[str, int] = {}
+#: The same counts by (kernel, device), e.g. ("ct_stft", "cuda:0").
+LAUNCHES_ON: dict[tuple[str, str], int] = {}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, device) -> None:
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    key = (name, str(device))
+    LAUNCHES_ON[key] = LAUNCHES_ON.get(key, 0) + 1
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCHES_ON.clear()
 
 
 def nvcc() -> str:
@@ -128,10 +135,18 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed with cudaError {err}")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+def launch(name: str, fn, device, *args) -> None:
+    """Call C entry point `fn` (from `function`) with `args` and, last, the
+    current stream of `device`, with `device` made the calling thread's
+    current device around the call; raise on a CUDA error and count one
+    launch of `name` on `device`."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        err = fn(*args, stream)
+    check(name, err)
+    count_launch(name, device)
 
 
 def on_cuda(t) -> bool:

@@ -78,14 +78,12 @@ def _launch_frames(
     _build.require("twiddle", twiddle, torch.float32, 2, dev)
     if window.shape[0] != 512 or twiddle.shape != (2, 257):
         raise ValueError("512-point window and twiddles expected")
-    fn = _build.function(lib, fn_name, _FRAME_ARGS)
-    err = fn(
+    _build.launch(
+        counted or lib, _build.function(lib, fn_name, _FRAME_ARGS), dev,
         _build.ptr(signal), signal.shape[0], signal.shape[1], n_frames, hop,
         offset, _build.ptr(window), _build.ptr(twiddle[0]),
-        _build.ptr(twiddle[1]), _build.ptr(out), _build.stream_ptr(dev),
+        _build.ptr(twiddle[1]), _build.ptr(out),
     )
-    _build.check(counted or lib, err)
-    _build.count_launch(counted or lib)
 
 
 # --------------------------------------------------------------------------
@@ -247,14 +245,12 @@ def ct_stft_mags(
     out = torch.empty(
         (padded.shape[0], n_frames, n_bins), dtype=torch.float32, device=dev
     )
-    fn = _build.function("ct_stft", "ct_stft_launch", _FRAME_ARGS)
-    err = fn(
+    _build.launch(
+        "ct_stft", _build.function("ct_stft", "ct_stft_launch", _FRAME_ARGS), dev,
         _build.ptr(padded), padded.shape[0], padded.shape[1], n_frames, hop,
         log2w, _build.ptr(window), _build.ptr(twiddle[0]),
-        _build.ptr(twiddle[1]), _build.ptr(out), _build.stream_ptr(dev),
+        _build.ptr(twiddle[1]), _build.ptr(out),
     )
-    _build.check("ct_stft", err)
-    _build.count_launch("ct_stft")
     return out.transpose(1, 2)
 
 
@@ -292,12 +288,10 @@ def ct_frames_mags(
         raise ValueError("window/twiddle size does not match the frame width")
     out = torch.empty((n, n_bins), dtype=torch.float32, device=dev)
     fn = _build.function("ct_stft", "ct_frames_launch", [_P, _I, _I, _P, _P, _P, _P, _P])
-    err = fn(
-        _build.ptr(frames), n, log2w, _build.ptr(window), _build.ptr(twiddle[0]),
-        _build.ptr(twiddle[1]), _build.ptr(out), _build.stream_ptr(dev),
+    _build.launch(
+        "ct_frames", fn, dev, _build.ptr(frames), n, log2w, _build.ptr(window),
+        _build.ptr(twiddle[0]), _build.ptr(twiddle[1]), _build.ptr(out),
     )
-    _build.check("ct_frames", err)
-    _build.count_launch("ct_frames")
     return out.transpose(0, 1)
 
 
@@ -545,11 +539,9 @@ def timbral_flat(
     bmat = _flat_block(twiddle)
     out = torch.empty((signal.shape[0], n_frames, 5), dtype=torch.float32, device=dev)
     fn = _build.function("timbral_flat", "timbral_flat_launch", [_P, _I, _L, _I, _I, _I, _P, _P, _P, _P])
-    err = fn(
-        _build.ptr(signal), signal.shape[0], signal.shape[1], n_frames, TIMBRAL_HOP,
-        TIMBRAL_OFFSET, _build.ptr(window), _build.ptr(bmat), _build.ptr(out),
-        _build.stream_ptr(dev),
+    _build.launch(
+        "timbral_flat", fn, dev, _build.ptr(signal), signal.shape[0], signal.shape[1],
+        n_frames, TIMBRAL_HOP, TIMBRAL_OFFSET, _build.ptr(window), _build.ptr(bmat),
+        _build.ptr(out),
     )
-    _build.check("timbral_flat", err)
-    _build.count_launch("timbral_flat")
     return out

@@ -7,21 +7,42 @@ from __future__ import annotations
 import torch
 
 
+#: Terms a level of `batch_free_sum` adds per output: a CUDA reduction of
+#: at most 32 contiguous terms an output gives each output as many threads
+#: as it has terms, however many outputs there are.
+SUM_CHUNK = 32
+
+
+def batch_free_sum(x: torch.Tensor, dim=-1) -> torch.Tensor:
+    """Sum over `dim` in an order that the other dims' sizes leave alone:
+    chunks of `SUM_CHUNK` terms, zero-padded, then the chunks' sums, level
+    by level. A CUDA reduction sizes its blocks, and splits an output's
+    terms over blocks, by how many outputs there are, so a song's summary
+    over its frames would round otherwise in a batch of another size."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > SUM_CHUNK:
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % SUM_CHUNK))
+        x = x.reshape(*x.shape[:-1], -1, SUM_CHUNK).sum(-1)
+    return x.sum(-1)
+
+
 def masked_mean(values: torch.Tensor, mask: torch.Tensor, dim=-1) -> torch.Tensor:
-    """Mean over `mask`-selected entries (NaN-safe in masked positions)."""
+    """Mean over `mask`-selected entries (NaN-safe in masked positions),
+    each song's alike in a batch of any size (`batch_free_sum`)."""
     zero = torch.zeros((), dtype=values.dtype, device=values.device)
     n = mask.to(values.dtype).sum(dim)
-    return torch.where(mask, values, zero).sum(dim) / torch.clamp(n, min=1)
+    return batch_free_sum(torch.where(mask, values, zero), dim) / torch.clamp(n, min=1)
 
 
 def masked_std(values: torch.Tensor, mask: torch.Tensor, dim=-1) -> torch.Tensor:
     """Population standard deviation (ddof=0) over masked entries, two-pass
-    like ndarray's `std_axis` (src/timbral.rs:59-121)."""
+    like ndarray's `std_axis` (src/timbral.rs:59-121), each song's alike in
+    a batch of any size (`batch_free_sum`)."""
     zero = torch.zeros((), dtype=values.dtype, device=values.device)
     n = torch.clamp(mask.to(values.dtype).sum(dim), min=1)
-    mean = torch.where(mask, values, zero).sum(dim) / n
+    mean = batch_free_sum(torch.where(mask, values, zero), dim) / n
     d = torch.where(mask, values - mean.unsqueeze(dim), zero)
-    return torch.sqrt((d * d).sum(dim) / n)
+    return torch.sqrt(batch_free_sum(d * d, dim) / n)
 
 
 _SIGNED = {torch.float32: torch.int32, torch.float64: torch.int64}

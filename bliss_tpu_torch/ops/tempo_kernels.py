@@ -138,8 +138,7 @@ def autocorr(df: torch.Tensor) -> torch.Tensor:
     if rows == 0:
         return acf
     fn = _build.function("autocorr", "autocorr_launch", [_P, _P, ctypes.c_longlong, _P])
-    _build.check("autocorr", fn(_build.ptr(df), _build.ptr(acf), rows, _build.stream_ptr(df.device)))
-    _build.count_launch("autocorr")
+    _build.launch("autocorr", fn, df.device, _build.ptr(df), _build.ptr(acf), rows)
     return acf
 
 
@@ -316,13 +315,11 @@ def block_inputs(
         "autocorr", "block_inputs_launch",
         [_P, _P, _I, _I, _I, _P, _P, ctypes.c_float, ctypes.c_float] + [_P] * 9 + [_P],
     )
-    err = fn(
-        _build.ptr(thresh), _build.ptr(h_valid), batch, h, n_blocks, _build.ptr(rwv),
-        _build.ptr(dfwv), rayparam_trunc, g_var2,
-        *(_build.ptr(out[name]) for name in BLOCK_WIDTHS), _build.stream_ptr(dev),
+    _build.launch(
+        "block_inputs", fn, dev, _build.ptr(thresh), _build.ptr(h_valid), batch, h, n_blocks,
+        _build.ptr(rwv), _build.ptr(dfwv), rayparam_trunc, g_var2,
+        *(_build.ptr(out[name]) for name in BLOCK_WIDTHS),
     )
-    _build.check("block_inputs", err)
-    _build.count_launch("block_inputs")
     return out
 
 
@@ -565,11 +562,9 @@ def beat_track(blocks: dict, n_valid_blocks: torch.Tensor):
     if batch == 0 or n_blocks == 0:
         return bp, beats, fired
     fn = _build.function("beat_track", "beat_track_launch", [_P] * 10 + [_I, _I, _P, _P, _P, _P])
-    err = fn(
-        *(_build.ptr(blocks[name]) for name in BLOCK_WIDTHS), _build.ptr(n_valid_blocks),
-        batch, n_blocks, _build.ptr(bp), _build.ptr(beats), _build.ptr(fired),
-        _build.stream_ptr(dev),
+    _build.launch(
+        "beat_track", fn, dev, *(_build.ptr(blocks[name]) for name in BLOCK_WIDTHS),
+        _build.ptr(n_valid_blocks), batch, n_blocks, _build.ptr(bp), _build.ptr(beats),
+        _build.ptr(fired),
     )
-    _build.check("beat_track", err)
-    _build.count_launch("beat_track")
     return bp, beats, fired

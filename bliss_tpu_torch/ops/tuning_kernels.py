@@ -190,13 +190,11 @@ def tuning_peaks(
         "tuning", "tuning_peaks_launch",
         [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _L, _P, _P, _P, _P],
     )
-    err = fn(
-        _build.ptr(spec_fm), _build.ptr(frame_mask), b, f, bins, first, rows, n_bins,
-        hz_per_bin, float(bins_per_octave), inv_res, cap,
-        _build.ptr(keys), _build.ptr(bin_out), _build.ptr(n), _build.stream_ptr(dev),
+    _build.launch(
+        "tuning_peaks", fn, dev, _build.ptr(spec_fm), _build.ptr(frame_mask), b, f, bins,
+        first, rows, n_bins, hz_per_bin, float(bins_per_octave), inv_res, cap,
+        _build.ptr(keys), _build.ptr(bin_out), _build.ptr(n),
     )
-    _build.check("tuning_peaks", err)
-    _build.count_launch("tuning_peaks")
     return keys, bin_out, n
 
 
@@ -281,13 +279,10 @@ def tuning_select(
         "tuning", "tuning_select_launch",
         [_P, _P, _P, _I, _L, _I, _P, _P, _P, _P, _P, _P],
     )
-    err = fn(
-        _build.ptr(keys), _build.ptr(bins), _build.ptr(n), b, cap, n_bins,
-        *(_build.ptr(out[k]) for k in ("counts", "o1", "o2", "min_c", "tk")),
-        _build.stream_ptr(dev),
+    _build.launch(
+        "tuning_select", fn, dev, _build.ptr(keys), _build.ptr(bins), _build.ptr(n), b, cap,
+        n_bins, *(_build.ptr(out[k]) for k in ("counts", "o1", "o2", "min_c", "tk")),
     )
-    _build.check("tuning_select", err)
-    _build.count_launch("tuning_select")
     return out
 
 
@@ -319,12 +314,10 @@ def bisect8(plane: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     hist = torch.zeros((b, 256), dtype=torch.int32, device=dev)
     out = torch.empty((b, 2), dtype=torch.int32, device=dev)
     fn = _build.function("tuning", "bisect8_launch", [_P, _I, _L, _P, _P, _P, _P])
-    err = fn(
-        _build.ptr(flat), b, flat.shape[1], _build.ptr(k), _build.ptr(hist),
-        _build.ptr(out), _build.stream_ptr(dev),
+    _build.launch(
+        "bisect8", fn, dev, _build.ptr(flat), b, flat.shape[1], _build.ptr(k), _build.ptr(hist),
+        _build.ptr(out),
     )
-    _build.check("bisect8", err)
-    _build.count_launch("bisect8")
     return out
 
 
@@ -353,12 +346,10 @@ def histogram_int_plane(idx: torch.Tensor, n_bins: int) -> torch.Tensor:
         raise ValueError(f"histogram_int_plane: n_bins {n_bins} > 128")
     out = torch.zeros((b, n_bins), dtype=torch.int32, device=dev)
     fn = _build.function("tuning", "hist_int_launch", [_P, _I, _L, _I, _P, _P])
-    err = fn(
-        _build.ptr(flat), b, flat.shape[1], n_bins, _build.ptr(out),
-        _build.stream_ptr(dev),
+    _build.launch(
+        "histogram_int_plane", fn, dev, _build.ptr(flat), b, flat.shape[1], n_bins,
+        _build.ptr(out),
     )
-    _build.check("histogram_int_plane", err)
-    _build.count_launch("histogram_int_plane")
     return out
 
 
@@ -465,13 +456,11 @@ def bisect8_keys(
         "tuning", "bisect8_keys_launch",
         [_P, _P, _I, _L, _I, ctypes.c_float, _P, _P, _P, _P, _P],
     )
-    err = fn(
-        _build.ptr(values), _build.ptr(mask), b, values.shape[1], level, q,
-        _build.ptr(state), _build.ptr(hist), _build.ptr(out),
-        _build.ptr(median) if median is not None else None, _build.stream_ptr(dev),
+    _build.launch(
+        "bisect8_keys", fn, dev, _build.ptr(values), _build.ptr(mask), b, values.shape[1],
+        level, q, _build.ptr(state), _build.ptr(hist), _build.ptr(out),
+        _build.ptr(median) if median is not None else None,
     )
-    _build.check("bisect8_keys", err)
-    _build.count_launch("bisect8_keys")
     return out
 
 

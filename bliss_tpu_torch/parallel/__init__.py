@@ -1,3 +1,4 @@
-"""Splitting one piece of work over shards (counterpart of
-bliss_tpu/parallel/). So far: `longsong`, the time-sharded analyzer of one
-very long song, with its shards on one card."""
+"""Splitting work over devices and processes (counterpart of
+bliss_tpu/parallel/): `mesh` (a list of devices: row groups of a batch, a
+row-sharded library matrix), `longsong` (one very long song in time shards
+over a device list) and `distributed` (processes joined by a gloo group)."""

@@ -19,14 +19,19 @@ small things cross shards:
     cheap summaries and the sequential beat tracker run once, with the
     semantics of the unsharded path.
 
-**The mesh axis of the JAX package is a leading tensor axis here.** All
-shards lie on one device as `[D, shard_len]`, and the three collectives
-are the three small functions `halo_exchange`, `psum` and `all_gather`
-over that axis; spreading the shards over several cards changes their
-bodies and nothing else. The chroma frames, the one large intermediate
-(`[fps_max, 8192]` a shard, 3.7 times the shard's samples), are gathered
-and transformed one shard at a time, so only one shard's frames are alive
-at once; the other stages run over all shards in one call.
+**The mesh axis of the JAX package is a list of devices here.** The
+shards are `[D, shard_len]` rows; contiguous groups of `D / len(devices)`
+rows lie on each device of the list (entries may repeat), and every
+sharded quantity is a list of such per-device pieces. The three
+collectives are the three small functions `halo_exchange` (one margin
+copied between neighbouring devices), `psum` and `all_gather` (the pieces
+brought together in shard order on the first device and, for `psum`,
+summed there over the shard axis, so every cross-shard sum keeps the order
+of one device's `[D, ...]` tensor). The chroma frames, the one large
+intermediate (`[fps_max, 8192]` a shard, 3.7 times the shard's samples),
+are gathered and transformed one shard at a time, so only one shard's
+frames are alive on a device at once; the other stages run over a device's
+shards in one call.
 
 Frame ownership is derived from SAMPLE ranges: shard `d` owns chroma
 frame `f` iff `f*hop` lies in its sample range, so a frame's window never
@@ -54,11 +59,12 @@ from ..models import chroma as chroma_model
 from ..models import loudness as loudness_model
 from ..models import tempo as tempo_model
 from ..models import timbral as timbral_model
-from ..models.analyzer import _resolve_dtype, bucket_length, resolve_device
+from ..models.analyzer import _resolve_dtype, bucket_length, resolve_devices
 from ..ops.dft_kernels import ct_frames_mags, frame_dft_mags, timbral_fft
 from ..ops.reductions import (
     _float_sort_key,
     _key_to_float,
+    batch_free_sum,
     masked_quantile_midpoint_all,
     normalize_range,
 )
@@ -87,30 +93,41 @@ _GRAIN = L_CHUNK
 
 
 # ---------------------------------------------------------------------------
-# the three collectives over the shard axis (axis 0)
+# the three collectives over the shard axis: lists of per-device pieces
 # ---------------------------------------------------------------------------
 
 
-def halo_exchange(shards: torch.Tensor):
-    """`(left, right)`, each `[D, HALO]`: the last samples of each shard's
-    left neighbour and the first of its right neighbour; the two global
-    edges read zeros (the zero padding / zero history of the unsharded
-    path)."""
-    zeros = shards.new_zeros((1, HALO))
-    left = torch.cat([zeros, shards[:-1, -HALO:]])
-    right = torch.cat([shards[1:, :HALO], zeros])
+def halo_exchange(pieces: list):
+    """`(left, right)`, each a list of `[d_i, HALO]` pieces beside the
+    pieces of shards `[d_i, shard_len]`: the last samples of each shard's
+    left neighbour and the first of its right neighbour, one margin copied
+    across each boundary between devices; the two global edges read zeros
+    (the zero padding / zero history of the unsharded path)."""
+    left, right = [], []
+    last = len(pieces) - 1
+    for i, p in enumerate(pieces):
+        before = pieces[i - 1][-1:, -HALO:].to(p.device) if i else p.new_zeros((1, HALO))
+        after = pieces[i + 1][:1, :HALO].to(p.device) if i < last else p.new_zeros((1, HALO))
+        left.append(torch.cat([before, p[:-1, -HALO:]]))
+        right.append(torch.cat([p[1:, :HALO], after]))
     return left, right
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of a per-shard quantity `[D, ...]` over the shards."""
-    return x.sum(0)
+def all_gather(pieces: list) -> torch.Tensor:
+    """Every shard's piece `[d_i, ...]`, in shard order, on the first
+    device: `[D, ...]`."""
+    return torch.cat([p.to(pieces[0].device) for p in pieces])
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every shard's piece `[D, ...]`, in shard order, visible to all: on
-    one device the stacked tensor itself."""
-    return x
+def psum(pieces: list) -> torch.Tensor:
+    """Sum of a per-shard quantity over all shards, on the first device, in
+    the order of one device's `[D, ...]` tensor."""
+    return all_gather(pieces).sum(0)
+
+
+def _firsts(pieces: list) -> list:
+    """The global index of each piece's first shard."""
+    return np.cumsum([0] + [p.shape[0] for p in pieces[:-1]]).tolist()
 
 
 # ---------------------------------------------------------------------------
@@ -124,33 +141,40 @@ def _float_key(x: torch.Tensor) -> torch.Tensor:
     return _float_sort_key(x.to(torch.float32)).to(torch.int64) + (1 << 31)
 
 
-def _global_kth_smallest(values, mask, k):
-    """Exact k-th smallest masked f32 value across all shards `[D, ...]`:
-    32-round bisection on the float's order-isomorphic integer key (the
-    signed int32 form, which orders as `_float_key` does and takes half
-    its memory), one `psum` of a per-shard count per round."""
-    d_count = values.shape[0]
-    mask = mask.reshape(d_count, -1)
-    keys = _float_sort_key(values.to(torch.float32)).reshape(d_count, -1)
+def _global_kth_smallest(values: list, mask: list, k):
+    """Exact k-th smallest masked f32 value across all shards (pieces
+    `[d_i, ...]`): 32-round bisection on the float's order-isomorphic
+    integer key (the signed int32 form, which orders as `_float_key` does
+    and takes half its memory), one `psum` of per-shard counts a round; the
+    bounds live on the first device and each round's midpoint goes to every
+    device."""
+    keys = [_float_sort_key(v.to(torch.float32)).reshape(v.shape[0], -1) for v in values]
+    masks = [m.reshape(m.shape[0], -1) for m in mask]
     info = torch.iinfo(torch.int32)
-    lo = torch.full((), info.min, dtype=torch.int64, device=values.device)
-    hi = torch.full((), info.max, dtype=torch.int64, device=values.device)
+    first = values[0].device
+    lo = torch.full((), info.min, dtype=torch.int64, device=first)
+    hi = torch.full((), info.max, dtype=torch.int64, device=first)
     for _ in range(32):
         mid = lo + (hi - lo) // 2
-        cnt = psum(((keys <= mid.to(torch.int32)) & mask).sum(-1))
+        cnt = psum([
+            ((kp <= mid.to(kp.device, torch.int32)) & mp).sum(-1) for kp, mp in zip(keys, masks)
+        ])
         take_low = cnt >= k + 1
         lo, hi = torch.where(take_low, lo, mid + 1), torch.where(take_low, mid, hi)
     return _key_to_float(lo, torch.float32)
 
 
-def _global_median_midpoint(values, mask):
-    """Midpoint median of the masked values of all shards `[D, ...]`
-    (ndarray-stats Midpoint semantics). f32 takes the counting rounds; any
-    other dtype (the CPU's f64 chroma stage) one exact sort-based select
-    over the flattened plane, the same value."""
-    if values.dtype != torch.float32:
-        return masked_quantile_midpoint_all(values.reshape(1, -1), mask.reshape(1, -1))[0]
-    n = psum(mask.flatten(1).sum(-1))
+def _global_median_midpoint(values: list, mask: list):
+    """Midpoint median of the masked values of all shards (pieces
+    `[d_i, ...]`), on the first device (ndarray-stats Midpoint semantics).
+    f32 takes the counting rounds; any other dtype (the CPU's f64 chroma
+    stage) one exact sort-based select over the gathered plane, the same
+    value."""
+    if values[0].dtype != torch.float32:
+        return masked_quantile_midpoint_all(
+            all_gather(values).reshape(1, -1), all_gather(mask).reshape(1, -1)
+        )[0]
+    n = psum([m.flatten(1).sum(-1) for m in mask])
     pos = (n - 1).to(torch.float32) * 0.5
     vlo = _global_kth_smallest(values, mask, torch.floor(pos).to(torch.int64))
     vhi = _global_kth_smallest(values, mask, torch.ceil(pos).to(torch.int64))
@@ -162,9 +186,10 @@ def _global_median_midpoint(values, mask):
 # ---------------------------------------------------------------------------
 
 
-def _shard_base(d_count: int, shard_len: int, device) -> torch.Tensor:
-    """`[D]` global position of each extended shard's first sample."""
-    return torch.arange(d_count, device=device) * shard_len - HALO
+def _shard_base(first: int, count: int, shard_len: int, device) -> torch.Tensor:
+    """`[count]` global position of the first sample of extended shards
+    `first .. first + count - 1`."""
+    return torch.arange(first, first + count, device=device) * shard_len - HALO
 
 
 def _chroma_local_frames(ext, base, f_lo, fps_max, length):
@@ -190,13 +215,15 @@ def _chroma_local_frames(ext, base, f_lo, fps_max, length):
     return ext[torch.clamp(idx - base.to(i32), 0, ext.shape[0] - 1)]
 
 
-def _chroma_spectrum(ext, shard_len, fps_max, length, dtype, tables):
-    """Every shard's chroma STFT magnitudes `[D, 4097, fps_max]` and the
-    mask `[D, fps_max]` of the frames it owns that lie inside the song."""
+def _chroma_spectrum(ext, first, shard_len, fps_max, length, dtype, tables):
+    """The chroma STFT magnitudes `[d, 4097, fps_max]` of one piece's
+    extended shards `ext [d, E]` (global shards `first .. first + d - 1`)
+    and the mask `[d, fps_max]` of the frames each owns that lie inside the
+    song."""
     dev = ext.device
     d_count = ext.shape[0]
-    d = torch.arange(d_count, device=dev)
-    base = _shard_base(d_count, shard_len, dev)
+    d = torch.arange(first, first + d_count, device=dev)
+    base = _shard_base(first, d_count, shard_len, dev)
 
     # ownership: frame f belongs to shard floor(f*HOP / shard_len)
     f_lo = (d * shard_len + HOP - 1) // HOP
@@ -219,42 +246,50 @@ def _chroma_spectrum(ext, shard_len, fps_max, length, dtype, tables):
     return spectrum, valid
 
 
-def _tuning_planes(spectrum, valid):
-    """The tuning estimate's per-shard planes: the histogram-bin plane of
+def _tuning_planes(spectra: list, valids: list):
+    """The tuning estimate's per-piece planes: the histogram-bin plane of
     the peaks at or above the GLOBAL median peak magnitude (the input of
     `histogram_int_plane`), and the peak mask."""
-    pitches, pmags, peak_mask = chroma_model.pip_track(spectrum, valid, WINDOW)
-    pos_mask = peak_mask & (pitches > 0.0)
-    threshold = _global_median_midpoint(pmags, pos_mask)
-    sel = pos_mask & (pmags >= threshold)
-    return chroma_model.tuning_bin_plane(pitches, sel), peak_mask
+    tracks = [chroma_model.pip_track(s, v, WINDOW) for s, v in zip(spectra, valids)]
+    pos = [peak & (pitches > 0.0) for pitches, _, peak in tracks]
+    threshold = _global_median_midpoint([pmags for _, pmags, _ in tracks], pos)
+    planes = [
+        chroma_model.tuning_bin_plane(pitches, p & (pmags >= threshold.to(pmags.device)))
+        for (pitches, pmags, _), p in zip(tracks, pos)
+    ]
+    return planes, [peak for _, _, peak in tracks]
 
 
-def _chroma_raw(ext, shard_len, fps_max, length, dtype, tables) -> torch.Tensor:
-    """Raw `[10]` interval features of the time-sharded chroma pipeline
-    (exact cross-shard reductions; see the module docstring)."""
-    d_count = ext.shape[0]
-    spectrum, valid = _chroma_spectrum(ext, shard_len, fps_max, length, dtype, tables)
+def _chroma_raw(ext: list, shard_len, fps_max, length, dtype) -> torch.Tensor:
+    """Raw `[10]` interval features of the time-sharded chroma pipeline over
+    the pieces `ext` (exact cross-shard reductions; see the module
+    docstring), on the first device."""
+    spectra, valids = zip(*[
+        _chroma_spectrum(e, f, shard_len, fps_max, length, dtype, default_tables().on(e.device))
+        for e, f in zip(ext, _firsts(ext))
+    ])
 
     # --- tuning: local peaks, global median + histogram
-    bin_plane, peak_mask = _tuning_planes(spectrum, valid)
-    counts = psum(histogram_int_plane(bin_plane, 100))
-    any_peak = psum(peak_mask.flatten(1).sum(-1)) > 0
+    bin_planes, peak_masks = _tuning_planes(spectra, valids)
+    counts = psum([histogram_int_plane(bp, 100) for bp in bin_planes])
+    any_peak = psum([pm.flatten(1).sum(-1) for pm in peak_masks]) > 0
     tuning = (-50.0 + torch.argmax(counts).to(dtype)) / 100.0
     tuning = torch.where(any_peak, tuning, 0.0)
-    del bin_plane, peak_mask
+    del bin_planes, peak_masks
 
     # --- chroma + interval features, local frames then one global mean
-    chroma = chroma_model.chroma_stft_from_spectrum(
-        spectrum, tuning.expand(d_count), WINDOW, tables
-    )
-    feats = chroma_model.interval_feature_matrix(
-        chroma, tables["interval_indices"]
-    )  # [D, 10, fps_max]
-    local_sum = torch.where(valid.unsqueeze(1), feats, 0.0).sum(-1)
-    total = psum(local_sum)
-    count = psum(valid.sum(-1).to(dtype))
-    return total / torch.clamp(count, min=1.0)
+    sums, frames = [], []
+    for spectrum, valid in zip(spectra, valids):
+        tab = default_tables().on(spectrum.device)
+        chroma = chroma_model.chroma_stft_from_spectrum(
+            spectrum, tuning.to(spectrum.device).expand(spectrum.shape[0]), WINDOW, tab
+        )
+        feats = chroma_model.interval_feature_matrix(
+            chroma, tab["interval_indices"]
+        )  # [d, 10, fps_max]
+        sums.append(batch_free_sum(torch.where(valid.unsqueeze(1), feats, 0.0)))
+        frames.append(valid.sum(-1).to(dtype))
+    return psum(sums) / torch.clamp(psum(frames), min=1.0)
 
 
 def _shard_geometry(t: int, d_count: int):
@@ -273,17 +308,24 @@ def _pad_signal(signal: np.ndarray, t_pad: int) -> np.ndarray:
     return signal
 
 
-def _extended_shards(signal, length: int, t: int, shards: int, dev):
-    """The song as `[D, HALO + shard_len + HALO]` on `dev`, samples past
+def _extended_shards(signal, length: int, t: int, shards: int, devices):
+    """The song as pieces `[D / len(devices), HALO + shard_len + HALO]`, one
+    on each device of `devices` (contiguous shard groups), samples past
     `length` zeroed, plus `shard_len`."""
     if shards < 1:
         raise ValueError(f"shards {shards}: at least 1")
+    if shards % len(devices):
+        raise ValueError(f"shards {shards}: not a multiple of the {len(devices)} devices")
     shard_len, t_pad = _shard_geometry(t, shards)
-    sig = torch.as_tensor(_pad_signal(signal, t_pad)[:t_pad], device=dev)
-    sig = torch.where(torch.arange(t_pad, device=dev) < length, sig, 0.0)
-    sig = sig.view(shards, shard_len)
-    left, right = halo_exchange(sig)
-    return torch.cat([left, sig, right], dim=1), shard_len
+    sig = _pad_signal(signal, t_pad)[:t_pad]
+    per = shards // len(devices) * shard_len
+    pieces = []
+    for i, dev in enumerate(devices):
+        part = torch.as_tensor(sig[i * per : (i + 1) * per], device=dev)
+        pos = torch.arange(i * per, (i + 1) * per, device=dev)
+        pieces.append(torch.where(pos < length, part, 0.0).view(-1, shard_len))
+    left, right = halo_exchange(pieces)
+    return [torch.cat(lpr, dim=1) for lpr in zip(left, pieces, right)], shard_len
 
 
 def _postprocess_chroma(raw: torch.Tensor, version: int) -> torch.Tensor:
@@ -296,64 +338,62 @@ def sharded_chroma_features(
     length: int,
     version: int = 2,
     shards: int = 8,
-    device="cuda",
+    device=None,
     dtype=None,
+    devices=None,
 ) -> np.ndarray:
     """Chroma features of one long `[T]` signal, time-sharded `shards`
-    ways on `device`.
+    ways over `devices` (default: `[device]`, else every visible card).
 
     Any `T`: the signal is zero-padded up to a multiple of `shards` (and to
     the minimum viable shard size); padded samples and frames are masked
     out through `length`, so the result matches the unsharded chroma path.
     """
-    dev = resolve_device(device)
-    dtype = _resolve_dtype(dev, dtype)
+    devs = resolve_devices(devices, device)
+    dtype = _resolve_dtype(devs[0], dtype)
     length = int(length)
     signal = np.asarray(signal, np.float32).reshape(-1)
-    ext, shard_len = _extended_shards(signal, length, signal.shape[-1], shards, dev)
-    raw = _chroma_raw(
-        ext, shard_len, shard_len // HOP + 2, length, dtype, default_tables().on(dev)
-    )
+    ext, shard_len = _extended_shards(signal, length, signal.shape[-1], shards, devs)
+    raw = _chroma_raw(ext, shard_len, shard_len // HOP + 2, length, dtype)
     return _postprocess_chroma(raw, version).to(torch.float32).cpu().numpy()
 
 
-def _tempo_series(ext: torch.Tensor, shard_len: int, length: int, tab: dict):
-    """The beat tracker's inputs of the whole song from the halo-extended
-    shards `ext [D, HALO + shard_len + HALO]`: each shard's thresholded
-    novelty and silence flags, gathered to `[1, D * hps]`, and `h_valid [1]`."""
-    dev = ext.device
-    d_count = ext.shape[0]
+def _tempo_series(ext: list, shard_len: int, length: int):
+    """The beat tracker's inputs of the whole song from the pieces of
+    halo-extended shards `ext [d_i, HALO + shard_len + HALO]`: each shard's
+    thresholded novelty and silence flags, gathered to `[1, D * hps]` on
+    the first device, and `h_valid [1]`."""
     hps = shard_len // B_HOP  # tempo hops per shard
-    sig = ext[:, HALO : HALO + shard_len]
-    right = ext[:, HALO + shard_len :]
-    # Frames for hops [h0 - 7, h0 + hps): the onset needs the previous
-    # frame's magnitudes, the 7-slot peak-picker window 6 more.
-    mags_b = frame_dft_mags(
-        ext, B_WIN, B_HOP, (7 * B_HOP + B_WIN - B_HOP) - HALO, hps + 7,
-        tab["hann_512"], tab["twiddle_512"],
-    )  # [D, hps + 7, 257]
-    onset_loc = torch.clamp(mags_b[:, 1:] - mags_b[:, :-1], min=0.0).sum(-1)
-    del mags_b  # hops [h0 - 6, h0 + hps)
-    windows = torch.stack(
-        [onset_loc[:, i : i + hps] for i in range(7)], dim=-1
-    )  # [D, hps, 7] = onset[h-6..h]
-    proc = tempo_model._filtfilt7(windows)
-    thresh_loc = (
-        proc[..., 5]
-        - torch.median(proc, dim=-1).values
-        - proc.mean(-1) * tempo_model._PP_THRESHOLD
-    )
-    # silence gate: the raw frame at hop h spans [256h, 256h + 512)
-    b = (sig.reshape(d_count, hps, B_HOP) ** 2).sum(-1)
-    b_next = torch.cat([b[:, 1:], (right[:, :B_HOP] ** 2).sum(-1, keepdim=True)], dim=1)
-    level_b = (b + b_next) / B_WIN
-    silent_loc = 10.0 * torch.log10(level_b) < tempo_model.SILENCE_DB
-    h_valid = torch.as_tensor([n_frames_strided(length, B_WIN, B_HOP)], device=dev)
-    return (
-        all_gather(thresh_loc).reshape(1, -1),
-        all_gather(silent_loc).reshape(1, -1),
-        h_valid,
-    )
+    thresh, silent = [], []
+    for piece in ext:
+        tab = default_tables().on(piece.device)
+        d_count = piece.shape[0]
+        sig = piece[:, HALO : HALO + shard_len]
+        right = piece[:, HALO + shard_len :]
+        # Frames for hops [h0 - 7, h0 + hps): the onset needs the previous
+        # frame's magnitudes, the 7-slot peak-picker window 6 more.
+        mags_b = frame_dft_mags(
+            piece, B_WIN, B_HOP, (7 * B_HOP + B_WIN - B_HOP) - HALO, hps + 7,
+            tab["hann_512"], tab["twiddle_512"],
+        )  # [d, hps + 7, 257]
+        onset_loc = torch.clamp(mags_b[:, 1:] - mags_b[:, :-1], min=0.0).sum(-1)
+        del mags_b  # hops [h0 - 6, h0 + hps)
+        windows = torch.stack(
+            [onset_loc[:, i : i + hps] for i in range(7)], dim=-1
+        )  # [d, hps, 7] = onset[h-6..h]
+        proc = tempo_model._filtfilt7(windows)
+        thresh.append(
+            proc[..., 5]
+            - torch.median(proc, dim=-1).values
+            - proc.mean(-1) * tempo_model._PP_THRESHOLD
+        )
+        # silence gate: the raw frame at hop h spans [256h, 256h + 512)
+        b = (sig.reshape(d_count, hps, B_HOP) ** 2).sum(-1)
+        b_next = torch.cat([b[:, 1:], (right[:, :B_HOP] ** 2).sum(-1, keepdim=True)], dim=1)
+        level_b = (b + b_next) / B_WIN
+        silent.append(10.0 * torch.log10(level_b) < tempo_model.SILENCE_DB)
+    h_valid = torch.as_tensor([n_frames_strided(length, B_WIN, B_HOP)], device=ext[0].device)
+    return all_gather(thresh).reshape(1, -1), all_gather(silent).reshape(1, -1), h_valid
 
 
 def sharded_analyze_samples(
@@ -361,71 +401,78 @@ def sharded_analyze_samples(
     length: int,
     version: int = 2,
     shards: int = 8,
-    device="cuda",
+    device=None,
     dtype=None,
+    devices=None,
 ) -> np.ndarray:
     """Full 23-feature (20 for version 1) analysis of ONE long song,
-    time-sharded `shards` ways on `device`: the long-song route of
-    `io.batch.analyze_paths_batched`. Matches `analyze_samples` to f32
-    reduction-order tolerance; every frame transform is local to a shard,
-    and only halos, counts and per-frame scalar series cross shards (see
-    the module docstring)."""
-    dev = resolve_device(device)
-    dtype = _resolve_dtype(dev, dtype)
+    time-sharded `shards` ways over `devices` (default: `[device]`, else
+    every visible card; `shards` a multiple of their count): the long-song
+    route of `io.batch.analyze_paths_batched`. Matches `analyze_samples` to
+    f32 reduction-order tolerance; every frame transform is local to a
+    shard, and only halos, counts and per-frame scalar series cross shards
+    (see the module docstring). The summaries run on the first device."""
+    devs = resolve_devices(devices, device)
+    dtype = _resolve_dtype(devs[0], dtype)
     length = int(length)
     signal = np.asarray(signal, np.float32).reshape(-1)
     t = max(int(signal.shape[-1]), length)
     # the padded length is bucketed like models.analyzer.bucket_length, so a
     # library of long songs meets O(log T) shapes, not one per song
     ext, shard_len = _extended_shards(
-        signal, length, bucket_length(t, min_bucket=1 << 17), shards, dev
+        signal, length, bucket_length(t, min_bucket=1 << 17), shards, devs
     )
-    tab = default_tables().on(dev)
-    d_count = shards
+    first = devs[0]
+    tab = default_tables().on(first)
     fps_t = shard_len // T_HOP  # timbral frames per shard
     cps = shard_len // L_CHUNK  # loudness chunks per shard
-    sig = ext[:, HALO : HALO + shard_len]
-    left = ext[:, :HALO]
-    d = torch.arange(d_count, device=dev)
 
     # ---- chroma (exact cross-shard reductions)
-    raw_chroma = _chroma_raw(ext, shard_len, shard_len // HOP + 2, length, dtype, tab)
+    raw_chroma = _chroma_raw(ext, shard_len, shard_len // HOP + 2, length, dtype)
     chroma = _postprocess_chroma(raw_chroma, version).to(torch.float32)
 
     # ---- timbral: local per-frame rows, gathered summaries. Frame
     # d*fps_t + j covers global [(d*fps_t + j)*128 - 384, ... + 512), which
     # starts at j*128 + HALO - 384 of the extended shard; shard 0's zero
     # left halo is the zero history.
-    rows = timbral_fft(
-        ext, fps_t, tab["hann_512"], tab["twiddle_512"], offset=(T_WIN - T_HOP) - HALO
-    )  # [D, fps_t, 5]
+    rows = []
+    for e in ext:
+        tab_e = default_tables().on(e.device)
+        rows.append(timbral_fft(
+            e, fps_t, tab_e["hann_512"], tab_e["twiddle_512"], offset=(T_WIN - T_HOP) - HALO
+        ))  # [d, fps_t, 5]
     cent, roll, flat = timbral_model.frame_descriptors_from_raw(all_gather(rows))
     n_valid_t = n_frames_strided(length, T_WIN, T_HOP)
-    mask_t = torch.arange(d_count * fps_t, device=dev) < n_valid_t
+    mask_t = torch.arange(shards * fps_t, device=first) < n_valid_t
     spectral = timbral_model.summarize_spectral(
         cent.reshape(-1), roll.reshape(-1), flat.reshape(-1), mask_t
     )
 
     # ---- tempo: one beat tracker on the gathered series
     tempo = tempo_model.tempo_from_series(
-        *_tempo_series(ext, shard_len, length, tab), tempo_model._bt_constants(dev, tab)
+        *_tempo_series(ext, shard_len, length), tempo_model._bt_constants(first, tab)
     )[0]
 
-    # ---- loudness: local chunk levels, gathered summaries
-    e = (sig.reshape(d_count, cps, L_CHUNK) ** 2).sum(-1)
-    starts = torch.arange(d_count * cps, device=dev) * L_CHUNK
+    # ---- loudness: local chunk levels, gathered summaries; zcr:
+    # neighbour-sample sign changes, exact integer counts, the previous
+    # sample of a shard's first from its left halo
+    energy, crossings = [], []
+    for e, f in zip(ext, _firsts(ext)):
+        d_count = e.shape[0]
+        sig = e[:, HALO : HALO + shard_len]
+        energy.append((sig.reshape(d_count, cps, L_CHUNK) ** 2).sum(-1))
+        prev = torch.cat([e[:, HALO - 1 : HALO], sig[:, :-1]], dim=1)
+        j = torch.arange(shard_len, device=e.device)
+        # global position j + start in [1, length)
+        start = (torch.arange(f, f + d_count, device=e.device) * shard_len).unsqueeze(-1)
+        change = ((sig > 0) != (prev > 0)) & (j >= 1 - start) & (j < length - start)
+        crossings.append(change.sum(-1))
+    starts = torch.arange(shards * cps, device=first) * L_CHUNK
     clen = torch.clamp(length - starts, 0, L_CHUNK)
-    level = all_gather(e).reshape(-1) / torch.clamp(clen, min=1).to(e.dtype)
+    energy = all_gather(energy)
+    level = energy.reshape(-1) / torch.clamp(clen, min=1).to(energy.dtype)
     loud = loudness_model.summarize_levels(level, clen)
-
-    # ---- zcr: neighbour-sample sign changes, exact integer count; the
-    # previous sample of a shard's first comes from its left halo
-    prev = torch.cat([left[:, -1:], sig[:, :-1]], dim=1)
-    j = torch.arange(shard_len, device=dev)
-    start = (d * shard_len).unsqueeze(-1)  # global position j + start in [1, length)
-    change = ((sig > 0) != (prev > 0)) & (j >= 1 - start) & (j < length - start)
-    crossings = psum(change.sum(-1))
-    rate = crossings.to(torch.float32) / float(np.float32(length))
+    rate = psum(crossings).to(torch.float32) / float(np.float32(length))
     zcr = normalize_range(rate, 0.0, 1.0).to(torch.float32)
 
     out = torch.cat([tempo.reshape(1), zcr.reshape(1), spectral, loud, chroma])

@@ -207,21 +207,18 @@ def _batched_cosine(x: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     return _ordered_sum(1.0 - sim)
 
 
-def _order_dedup(kind: str, mat, seeds, m, mask, meta_ids, threshold: float):
-    """The device half of `Library.playlist_from`'s dedup: seed distances ->
-    masked stable argsort -> row gather -> consecutive-pair distances ->
-    dedup verdicts, as one function of torch ops on `mat`'s device. Returns
-    `order` (int64 `[N]`) and one verdict per consecutive pair (bool
-    `[N-1]`), both on the device.
+def _order_dedup(kind: str, mat, dists, m, mask, meta_ids, threshold: float):
+    """The device half of `Library.playlist_from`'s dedup: from the seed
+    distances `dists [N]` (`_batched_mahalanobis` / `_batched_cosine` of
+    each row block) -> masked stable argsort -> row gather -> consecutive-
+    pair distances -> dedup verdicts, as one function of torch ops on
+    `mat`'s device. Returns `order` (int64 `[N]`) and one verdict per
+    consecutive pair (bool `[N-1]`), both on the device.
 
     `kind` is "mahalanobis" (euclidean rides it with an identity `m`) or
     "cosine". A verdict is src/playlist.rs:367-402's: pair distance below
     `threshold`, or equal non-null (title, artist), which `meta_ids` holds
     as integers (equal ids == equal pairs; -1 == any None)."""
-    if kind == "cosine":
-        dists = _batched_cosine(mat, seeds)
-    else:
-        dists = _batched_mahalanobis(mat, seeds, m)
     masked = torch.where(mask, dists, torch.inf)
     order = torch.argsort(masked, stable=True)
     g = mat.index_select(0, order)

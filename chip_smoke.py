@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--songs 8] [--seconds 300] [--profile]
                           [--corpus default|full]
+    python3 chip_smoke.py --distributed-worker RANK --port P --workdir DIR
+        (one process of phase 12's cluster; the phase starts both)
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of `bliss_tpu_torch/csrc` (one nvcc each, in
@@ -128,7 +130,26 @@
    s16_mono_22_5kHz.flac and testcue.cue (the path's kernels must launch,
    the stored vectors within 1e-4 of the files phase's, the CUE's missing
    file among the failed songs) and `playlist_from` on one of them; peak
-   device memory.
+   device memory;
+12. multi-device, on the one card (its lines start "multi-device:"; the
+   times beside the one-entry route's): right after the main path,
+   `parallel.mesh.sharded_analyze_batch` of the 8 x 5-min batch over
+   `make_mesh()` and over [cuda:0, cuda:0], bit for bit against
+   `analyze_batch`, every kernel launched once an entry; in 10, the
+   60-minute song's 8 shards over [cuda:0, cuda:0] against one entry
+   (tempo equal, <= 2e-5, the per-piece kernels launched once a piece);
+   in 8, the driver over [cuda:0, cuda:0] from the decoded songs, bit for
+   bit against one entry, every kernel once a group and more groups than
+   one entry; last, `sharded_top_k` (k = 100) and
+   `sharded_closest_distances` over the library's 100k matrix on 1 and 3
+   entries against the CPU (the same indices, distances within 1e-5), and
+   a two-process gloo group on 127.0.0.1, both on cuda:0 (this script
+   with `--distributed-worker`, each with a timeout): a ragged
+   `analyze_batch_distributed` (3 + 5 of the 5-min songs, bit for bit),
+   `top_k_distributed` over the 100k matrix split 60k/40k (equal), and
+   `update_library_distributed` of the files set into one store (every
+   song within 1e-6 of the files phase's vector, the CUE's missing file
+   failed).
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, then the
 result line. Any failed phase exits non-zero. Imports nothing of JAX.
@@ -166,6 +187,8 @@ PIANO_V2 = [
 #: and of the unfused one (longer buckets).
 FUSED_ROUTE = ("tuning_peaks", "tuning_select")
 UNFUSED_ROUTE = ("bisect8_keys", "histogram_int_plane")
+#: Every kernel of a batch in a bucket of the fused tuning route.
+FUSED_PATH = ("timbral_fft", "specflux", "ct_stft", "beat_track", "block_inputs") + FUSED_ROUTE
 #: Kernels held at the main path's shapes that no path launches:
 #: `block_inputs` computes the autocorrelation itself.
 OFF_PATH = ("autocorr",)
@@ -1234,27 +1257,36 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     return batch[0, :n].copy()
 
 
-def files_phase(corpus: str, card: str) -> dict:
-    """Files to features on the card through the batch driver, timed with
-    and without decoding, held against the port's CPU f64 path on the
-    same decoded samples. Returns the card's results by path."""
-    from bliss_tpu_torch.io.batch import analyze_paths_batched
-    from bliss_tpu_torch.io.fallback import FallbackDecoder
-    from bliss_tpu_torch.song import Song
-
+def files_set(corpus: str = "default") -> list:
+    """The files phase's paths: the drift fixtures but the 21-minute medley,
+    piano.flac, s16_mono_22_5kHz.flac and testcue.cue; `full`, every
+    fixture of the drift corpus."""
     drift = sorted((DATA / "drift").iterdir())
     if corpus == "full":
         # benches/tpu_drift.py:CORPUS
-        paths = sorted(
+        return sorted(
             p for p in list(DATA.glob("*.flac")) + list(DATA.glob("*.mp3"))
             + list(DATA.glob("*.ogg")) + list(DATA.glob("*.wav"))
             + list((DATA / "chroma").glob("*.ogg")) + drift
             if p.name != "empty.wav"
         ) + [DATA / "testcue.cue"]
-    else:
-        paths = [p for p in drift if "medley" not in p.name] + [
-            DATA / "piano.flac", DATA / "s16_mono_22_5kHz.flac", DATA / "testcue.cue",
-        ]
+    return [p for p in drift if "medley" not in p.name] + [
+        DATA / "piano.flac", DATA / "s16_mono_22_5kHz.flac", DATA / "testcue.cue",
+    ]
+
+
+def files_phase(corpus: str, card: str) -> dict:
+    """Files to features on the card through the batch driver, timed with
+    and without decoding, held against the port's CPU f64 path on the
+    same decoded samples; then the driver over two entries of the card.
+    Returns the card's results by path."""
+    from bliss_tpu_torch.io import batch as IB
+    from bliss_tpu_torch.io.batch import analyze_paths_batched
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.song import Song
+
+    paths = files_set(corpus)
     decoded: dict = {}
     decode_s: dict = {}
 
@@ -1279,13 +1311,15 @@ def files_phase(corpus: str, card: str) -> dict:
                 return FallbackDecoder.decode(path)
             return dataclasses.replace(song, sample_array=song.sample_array.copy())
 
-    def run(decoder, device, workers=None):
+    def run(decoder, device, workers=None, devices=None):
         t0 = time.perf_counter()
         out = {
             str(p): r
-            for p, r in analyze_paths_batched(decoder, paths, device=device, decode_workers=workers)
+            for p, r in analyze_paths_batched(
+                decoder, paths, device=device, decode_workers=workers, devices=devices
+            )
         }
-        if device == "cuda":
+        if device != "cpu":
             torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
@@ -1293,7 +1327,27 @@ def files_phase(corpus: str, card: str) -> dict:
     threads_s = sum(decode_s.values())
     gpu1, one_worker_s = run(Recording, "cuda", workers=1)
     serial_s = sum(decode_s.values())
-    gpu2, without_s = run(Decoded, "cuda")
+    # the driver's groups: one analyze_tensor call each, with its device
+    # and rows; every kernel of the path launches once a group
+    groups = []
+    analyze_tensor = IB.analyze_tensor
+
+    def counted(x, *args, **kwargs):
+        groups.append((str(x.device), x.shape[0]))
+        return analyze_tensor(x, *args, **kwargs)
+
+    IB.analyze_tensor = counted
+    try:
+        _build.reset_launches()
+        gpu2, without_s = run(Decoded, "cuda")
+        one = (list(groups), dict(_build.LAUNCHES_ON))
+        groups.clear()
+        _build.reset_launches()
+        dev0 = torch.device("cuda", 0)
+        two, two_s = run(Decoded, None, devices=[dev0, dev0])
+        listed = (list(groups), dict(_build.LAUNCHES_ON))
+    finally:
+        IB.analyze_tensor = analyze_tensor
     cpu, cpu_s = run(Decoded, "cpu")
     songs = sorted(k for k, r in gpu.items() if isinstance(r, Song))
     n_songs = len(songs)
@@ -1334,10 +1388,50 @@ def files_phase(corpus: str, card: str) -> dict:
             failures.append(f"{key}: feature {int(err.argmax())} drift {err.max():.3g} > {limit:g}")
     print(f"  worst real content {worst['real'][0]:.3g} ({worst['real'][1]}), worst degenerate "
           f"{worst['degenerate'][0]:.3g} ({worst['degenerate'][1]})", flush=True)
+    failures += hold_listed_driver(gpu2, without_s, one, two, two_s, listed, card)
     if failures:
         fail("files phase: " + "; ".join(failures))
     flat_audit(decoded, gpu, cpu)
     return gpu
+
+
+def hold_listed_driver(one_out, one_s, one, listed_out, listed_s, listed, card) -> list:
+    """The multi-device phase's driver check: `analyze_paths_batched` over
+    [cuda:0, cuda:0] against the one-entry driver on the same decoded
+    songs, every vector bit for bit; every kernel of the path launched once
+    a group on the card, and more groups than on one entry (a bucket's
+    second half ran on the second entry)."""
+    from bliss_tpu_torch.song import Song
+
+    failures = []
+    if sorted(one_out) != sorted(listed_out):
+        failures.append("driver over [cuda:0, cuda:0]: other paths than over one entry")
+    gaps = {}
+    for key, r in one_out.items():
+        g = listed_out.get(key)
+        if isinstance(r, Song) != isinstance(g, Song):
+            failures.append(f"driver over [cuda:0, cuda:0]: {key} {type(g).__name__}")
+        elif isinstance(r, Song):
+            gaps[key] = np.abs(r.analysis.as_arr1() - g.analysis.as_arr1())
+    worst = max(gaps.values(), key=lambda a: a.max())
+    exact = sum(not a.any() for a in gaps.values())
+    for label, (groups, counts) in (("one entry", one), ("[cuda:0, cuda:0]", listed)):
+        for k in FUSED_PATH:
+            if counts.get((k, "cuda:0"), 0) != len(groups):
+                failures.append(f"driver over {label}: {k} launched {counts.get((k, 'cuda:0'), 0)} "
+                                f"times for {len(groups)} groups")
+    if len(listed[0]) <= len(one[0]):
+        failures.append(f"driver over [cuda:0, cuda:0]: {len(listed[0])} groups, one entry "
+                        f"{len(one[0])}: no bucket was split")
+    print(f"multi-device: analyze_paths_batched over [cuda:0, cuda:0] from decoded songs "
+          f"{listed_s:.3f} s ({len(listed[0])} groups of {sorted({b for _, b in listed[0]})} rows), "
+          f"one entry {one_s:.3f} s ({len(one[0])} groups); {exact} of {len(gaps)} vectors bit for "
+          f"bit, largest gap {worst.max():.3g} (feature {int(worst.argmax())}); every path kernel "
+          f"once a group [{card}]", flush=True)
+    if exact != len(gaps):
+        failures.append(f"driver over [cuda:0, cuda:0]: {len(gaps) - exact} vectors differ from "
+                        f"one entry's, up to {worst.max():.3g} (feature {int(worst.argmax())})")
+    return failures
 
 
 def flat_audit(decoded: dict, gpu: dict, cpu: dict) -> None:
@@ -1488,9 +1582,9 @@ def hold_ct_edge_cases(dev) -> None:
     win, tw = DK._constants(w, str(dev))
     out = torch.empty((3, nf, w // 2 + 1), device=dev)
     fn = _build.function("ct_stft", "ct_stft_launch", DK._FRAME_ARGS)
-    _build.check("ct_stft", fn(
-        _build.ptr(padded), 3, padded.shape[1], nf, hop, 13, _build.ptr(win), _build.ptr(tw[0]),
-        _build.ptr(tw[1]), _build.ptr(out), _build.stream_ptr(dev)))
+    _build.launch(
+        "ct_stft", fn, dev, _build.ptr(padded), 3, padded.shape[1], nf, hop, 13, _build.ptr(win),
+        _build.ptr(tw[0]), _build.ptr(tw[1]), _build.ptr(out))
     ext = torch.nn.functional.pad(padded, (0, (nf - 1) * hop + w - padded.shape[1]))
     check(f"ct_stft, the last 4 of {nf} frames past the end", out.transpose(1, 2),
           DK.ct_stft_mags_plain(ext, w, hop, nf), 1)
@@ -1705,12 +1799,12 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
 
     # ---- the sharded path's kernels at this song's shapes ------------------
     tab = default_tables().on(dev)
-    ext, shard_len = LS._extended_shards(song, n, tpad, shards, dev)
+    (ext,), shard_len = LS._extended_shards(song, n, tpad, shards, [dev])
     fps_max, hps, fps_t = shard_len // LS.HOP + 2, shard_len // LS.B_HOP, shard_len // LS.T_HOP
-    base = LS._shard_base(shards, shard_len, dev)
+    base = LS._shard_base(0, shards, shard_len, dev)
     # the beat tracker on the song's gathered series (B = 1), as the sharded
     # path runs it
-    series = LS._tempo_series(ext, shard_len, n, tab)
+    series = LS._tempo_series([ext], shard_len, n)
     held = hold_beat_track(*series, f"{minutes:g}-min song, gathered series", card)
     results["beat_track"][f"{minutes:g}min_song"] = {k: held[k] for k in ("ms", "plain_ms", "step_us")}
     held = hold_block_inputs(series[0], series[2], f"{minutes:g}-min song, gathered series", card)
@@ -1747,10 +1841,10 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
           flush=True)
     # the tuning planes of the sharded chroma stage: the global median by
     # counting rounds against a sort of all shards' peaks, and the histogram
-    spectrum, valid = LS._chroma_spectrum(ext, shard_len, fps_max, n, torch.float32, tab)
+    spectrum, valid = LS._chroma_spectrum(ext, 0, shard_len, fps_max, n, torch.float32, tab)
     pitches, pmags, peak = CH.pip_track(spectrum, valid, LS.WINDOW)
     pos = peak & (pitches > 0.0)
-    med = LS._global_median_midpoint(pmags, pos)
+    med = LS._global_median_midpoint([pmags], [pos])
     med_sort = RD.masked_quantile_midpoint(pmags.reshape(1, -1), pos.reshape(1, -1))[0]
     if not torch.equal(med, med_sort):
         fail(f"long song: global median {med.item()!r} != sort median {med_sort.item()!r}")
@@ -1760,16 +1854,16 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     one_v, one_m = pmags.transpose(1, 2).view(1, -1), pos.transpose(1, 2).view(1, -1)
     if not torch.equal(TK.masked_quantile_midpoint_radix(one_v, one_m)[0], med):
         fail("long song: radix select over the sharded plane != the global median")
-    gm_ms = time_ms(lambda: LS._global_median_midpoint(pmags, pos), 3)
+    gm_ms = time_ms(lambda: LS._global_median_midpoint([pmags], [pos]), 3)
     radix_ms = time_ms(lambda: TK.masked_quantile_midpoint_radix(one_v, one_m), 10)
     n_plane = pmags.numel()
     del pitches, pmags, peak, pos, one_v, one_m
-    chroma_ms = time_ms(lambda: LS._chroma_raw(ext, shard_len, fps_max, n, torch.float32, tab), 2)
+    chroma_ms = time_ms(lambda: LS._chroma_raw([ext], shard_len, fps_max, n, torch.float32), 2)
     print(f"  sharded chroma stage {chroma_ms:.3f} ms, of it _global_median_midpoint alone "
           f"{gm_ms:.3f} ms ({100 * gm_ms / chroma_ms:.1f}%; 64 counting rounds over {n_plane} "
           f"elements); the radix select (4 x bisect8_keys) on the same plane {radix_ms:.4f} ms "
           f"[{card}]", flush=True)
-    bin_plane, _ = LS._tuning_planes(spectrum, valid)
+    (bin_plane,), _ = LS._tuning_planes([spectrum], [valid])
     hist, histp = TK.histogram_int_plane(bin_plane, 100), TK.histogram_int_plane_plain(bin_plane, 100)
     if not torch.equal(hist, histp):
         fail("long song: histogram_int_plane != plain on the sharded tuning plane")
@@ -1838,7 +1932,29 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     if gap.max() > 2e-5:
         print(f"  FAULT (within the 1e-4 contract): feature {int(gap.argmax())} is {gap.max():.3g} "
               f"from the bucketed analyzer's, above the 2e-5 of the CPU tests", flush=True)
-    del buf, song
+    del buf
+
+    # ---- the multi-device phase: the song's shards over [cuda:0, cuda:0] ---
+    _build.reset_launches()
+    listed, l_first, l_warm, l_peak, l_launches = timed(
+        lambda: LS.sharded_analyze_samples(song, n, 2, shards=shards, devices=[dev, dev])
+    )
+    # a launch a piece of shards, a launch a shard, a launch a song
+    want = {k: 2 * launches[k] for k in ("frame_dft_mags", "timbral_fft", "histogram_int_plane")}
+    want.update({k: launches[k] for k in ("ct_frames", "beat_track", "block_inputs")})
+    gap = np.abs(listed - sharded)
+    print(f"multi-device: {minutes:g}-min song, {shards} shards over [cuda:0, cuda:0] "
+          f"({shards // 2} an entry): first {l_first:.3f} s, warm {l_warm:.3f} s, peak {l_peak:.2f} "
+          f"GB (one entry: warm {warm_s:.3f} s, peak {peak:.2f} GB); tempo "
+          f"{'equal' if listed[0] == sharded[0] else 'DIFFERS'}, "
+          f"{'bit for bit' if not gap.any() else 'NOT bit for bit'}, largest gap {gap.max():.3g} "
+          f"(feature {int(gap.argmax())}); launches {l_launches} [{card}]", flush=True)
+    if any(l_launches.get(k, 0) != v for k, v in want.items()):
+        fail(f"long song over [cuda:0, cuda:0]: launches {l_launches}, expected {want}")
+    if listed[0] != sharded[0] or gap.max() > 2e-5:
+        fail(f"long song over [cuda:0, cuda:0]: {gap.max():.3g} from one entry's (limit 2e-5, "
+             "tempo equal)")
+    del song, listed
 
     # ---- a 21-minute song: the card's sharded vector vs the CPU f64 path ---
     n21 = song21.shape[0]
@@ -1893,6 +2009,17 @@ LIBRARY_SONGS = 100_000
 LIBRARY_SEEDS = 9
 
 
+def library_features(seed: int):
+    """The library phase's `[100k, 23]` features (uniform(-1, 1), 1% of the
+    rows an exact copy of another's) and the generator, drawn on."""
+    n = LIBRARY_SONGS
+    rng = np.random.default_rng(seed)
+    feats = rng.uniform(-1.0, 1.0, size=(n, 23)).astype(np.float32)
+    copies = rng.choice(n, n // 100, replace=False)
+    feats[copies] = feats[(copies + rng.integers(1, n, copies.shape[0])) % n]
+    return feats, rng
+
+
 def build_library(folder: pathlib.Path, seed: int):
     """A 100k-song Version2 SQLite store written through the port's
     `Library` (benches/playlist_bench.py's rows): features uniform(-1, 1)
@@ -1902,10 +2029,7 @@ def build_library(folder: pathlib.Path, seed: int):
     from bliss_tpu_torch.library import BaseConfig, Library
 
     n = LIBRARY_SONGS
-    rng = np.random.default_rng(seed)
-    feats = rng.uniform(-1.0, 1.0, size=(n, 23)).astype(np.float32)
-    copies = rng.choice(n, n // 100, replace=False)
-    feats[copies] = feats[(copies + rng.integers(1, n, copies.shape[0])) % n]
+    feats, rng = library_features(seed)
     titles = [f"title {i}" for i in range(n)]
     artists = [f"artist {i % 997}" for i in range(n)]
     for i in rng.choice(np.arange(1, n), n // 1000, replace=False):
@@ -2146,8 +2270,7 @@ def library_phase(seed: int, card: str, files: dict) -> None:
         _build.reset_launches()
         _, update_s = timed(lambda: user.update_library(trip))
         launches = dict(_build.LAUNCHES)
-        path_kernels = ("timbral_fft", "specflux", "ct_stft", "beat_track", "block_inputs") + FUSED_ROUTE
-        if any(launches.get(k, 0) < 1 for k in path_kernels):
+        if any(launches.get(k, 0) < 1 for k in FUSED_PATH):
             failures.append(f"update_library did not launch every kernel of the path: {launches}")
         stored = user.songs_from_library()
         worst = 0.0
@@ -2183,6 +2306,248 @@ def library_phase(seed: int, card: str, files: dict) -> None:
         fail("library phase: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# the multi-device phase: device lists on the one card, and two processes
+# ---------------------------------------------------------------------------
+
+#: Feature gap allowed where the cluster's rounds pad a song to another
+#: length than the files phase's buckets (a few f32 ulps of a feature in
+#: [-1, 1]); row groups, shard pieces and processes are held bit for bit.
+LISTED_ATOL = 1e-6
+
+
+def wall_s(fn):
+    """(result, seconds) of `fn()`, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hold_per_entry(label: str, one: dict, many: dict, entries: int, kernels) -> None:
+    """Each kernel of a path launched once for every list entry: over
+    `entries` entries of cuda:0 its count is `entries` times the one-entry
+    run's (which must be at least one)."""
+    bad = {
+        k: (one.get((k, "cuda:0"), 0), many.get((k, "cuda:0"), 0)) for k in kernels
+        if not one.get((k, "cuda:0")) or many.get((k, "cuda:0"), 0) != entries * one[(k, "cuda:0")]
+    }
+    if bad:
+        fail(f"{label}: launches (one entry, {entries} entries) {bad}")
+
+
+def multidevice_batch(batch, lengths, card: str) -> None:
+    """`sharded_analyze_batch` on the 8 x 5-min batch over `make_mesh()` and
+    over [cuda:0, cuda:0] against `analyze_batch`, each kernel counted on
+    each entry."""
+    from bliss_tpu_torch.models.analyzer import analyze_batch
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.parallel.mesh import make_mesh, sharded_analyze_batch
+
+    dev0 = torch.device("cuda", 0)
+    _build.reset_launches()
+    want, one_s = wall_s(lambda: analyze_batch(batch, lengths, device="cuda"))
+    one = dict(_build.LAUNCHES_ON)
+    again = analyze_batch(batch, lengths, device="cuda")
+    repeat = np.abs(again - want).max()
+    for label, mesh in (("make_mesh()", make_mesh()), ("[cuda:0, cuda:0]", [dev0, dev0])):
+        sharded_analyze_batch(mesh, batch, lengths)  # warm
+        _build.reset_launches()
+        got, s = wall_s(lambda: sharded_analyze_batch(mesh, batch, lengths))
+        hold_per_entry(f"sharded_analyze_batch over {label}", one, _build.LAUNCHES_ON, len(mesh),
+                       FUSED_PATH)
+        gap = np.abs(got - want)
+        print(f"multi-device: sharded_analyze_batch over {label} ({len(mesh)} entries, "
+              f"{batch.shape[0] // len(mesh)} rows each): {s:.3f} s, analyze_batch {one_s:.3f} s; "
+              f"{'bit for bit' if not gap.any() else 'NOT bit for bit'}, largest gap "
+              f"{gap.max():.3g} (feature {int(gap.argmax()) % gap.shape[1]}; analyze_batch against "
+              f"itself {repeat:.3g}); every kernel once an entry [{card}]", flush=True)
+        if gap.any():
+            fail(f"sharded_analyze_batch over {label}: not bit for bit ({gap.max():.3g})")
+
+
+def multidevice_top_k(seed: int, card: str) -> None:
+    """`sharded_top_k` (k = 100) and `sharded_closest_distances` over the
+    library phase's 100k-row matrix on 1 and 3 entries of cuda:0 (100k is
+    no multiple of 3), against the CPU: the same indices, distances within
+    1e-5 (relative)."""
+    from bliss_tpu_torch.parallel.mesh import place_rows, sharded_closest_distances, sharded_top_k
+
+    feats, _ = library_features(seed)
+    seeds = feats[[11, 70_001]]
+    cpu = [torch.device("cpu")]
+    want_idx, want_d = sharded_top_k(cpu, feats, seeds, 100)
+    want_all = sharded_closest_distances(cpu, feats, seeds)
+    dev0 = torch.device("cuda", 0)
+    for mesh in ([dev0], [dev0] * 3):
+        sharded_top_k(mesh, feats, seeds, 100)  # warm
+        (idx, d), s = wall_s(lambda: sharded_top_k(mesh, feats, seeds, 100))
+        dist, dist_s = wall_s(lambda: sharded_closest_distances(mesh, feats, seeds))
+        placed = place_rows(mesh, feats)
+        (pidx, _), placed_s = wall_s(
+            lambda: sharded_top_k(mesh, placed, seeds, 100, n_real=LIBRARY_SONGS))
+        rel = max(np.abs(d - want_d).max() / np.abs(want_d).max(),
+                  np.abs(dist - want_all).max() / np.abs(want_all).max())
+        print(f"multi-device: sharded_top_k (k = 100) over {len(mesh)} entries of cuda:0: "
+              f"{s * 1e3:.2f} ms with the upload, {placed_s * 1e3:.2f} ms on the placed matrix; "
+              f"sharded_closest_distances {dist_s * 1e3:.2f} ms; indices "
+              f"{'equal to' if np.array_equal(idx, want_idx) and np.array_equal(pidx, want_idx) else 'NOT'} "
+              f"the CPU's, distances within {rel:.3g} [{card}]", flush=True)
+        if not (np.array_equal(idx, want_idx) and np.array_equal(pidx, want_idx)) or rel > 1e-5:
+            fail(f"sharded_top_k over {len(mesh)} entries: other rows than the CPU's or {rel:.3g} > 1e-5")
+
+
+def cluster_phase(seed: int, batch, lengths, files: dict, card: str, timeout: float = 400.0) -> None:
+    """Two processes of one gloo group on tcp://127.0.0.1, both on cuda:0,
+    each `python3 chip_smoke.py --distributed-worker RANK`: a ragged
+    `analyze_batch_distributed` (3 and 5 of the 5-min songs),
+    `top_k_distributed` over the 100k matrix split 60k/40k, and
+    `update_library_distributed` of the default files into one store; each
+    held against the one-process route."""
+    import shutil
+    import socket
+    import sqlite3
+
+    from bliss_tpu_torch.models.analyzer import analyze_batch
+    from bliss_tpu_torch.parallel.mesh import sharded_top_k
+    from bliss_tpu_torch.song import Song
+
+    work = REPO / "tmp" / "smoke_cluster"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        np.save(work / "batch.npy", batch)
+        np.save(work / "lengths.npy", lengths)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--distributed-worker", str(rank),
+                 "--port", str(port), "--workdir", str(work), "--seed", str(seed)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for rank in range(2)
+        ]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            fail(f"cluster: a worker ran past {timeout:g} s")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        cluster_s = time.perf_counter() - t0
+        for rank, (proc, out) in enumerate(zip(procs, outs)):
+            if proc.returncode != 0 or f"WORKER_OK rank={rank}" not in out:
+                fail(f"cluster: worker {rank} exited {proc.returncode}:\n{out[-3000:]}")
+        reports = [json.loads(out.split("WORKER_REPORT ", 1)[1].splitlines()[0]) for out in outs]
+
+        # the ragged batch against one process's analyze_batch of the 8 rows
+        want, one_s = wall_s(lambda: analyze_batch(batch, lengths, device="cuda"))
+        got = np.concatenate([np.load(work / f"ragged_{rank}.npy") for rank in range(2)])
+        gap = np.abs(got - want)
+        # the top-k against one process's over the whole matrix
+        feats, _ = library_features(seed)
+        seeds = feats[[11, 70_001]]
+        (want_idx, want_d), topk_s = wall_s(
+            lambda: sharded_top_k([torch.device("cuda", 0)], feats, seeds, 100))
+        tops = [np.load(work / f"topk_{rank}.npz") for rank in range(2)]
+        same_topk = all(np.array_equal(t["idx"], want_idx) and np.array_equal(t["dist"], want_d)
+                        for t in tops)
+        # the shared store against the files phase's one-process vectors
+        with sqlite3.connect(work / "lib" / "songs.db") as conn:
+            rows = conn.execute(
+                "select song.path, feature.feature from feature join song on song.id = "
+                "feature.song_id order by song.id, feature.feature_index").fetchall()
+            failed = [r[0] for r in conn.execute("select path from song where error is not null")]
+        stored: dict = {}
+        for path, f in rows:
+            stored.setdefault(path, []).append(f)
+        songs = {k: r for k, r in files.items() if isinstance(r, Song)}
+        worst = max(float(np.abs(np.asarray(stored[str(s.path)], np.float32)
+                                 - s.analysis.as_arr1()).max())
+                    for s in songs.values() if str(s.path) in stored) if stored else float("inf")
+        print(f"multi-device: 2-process gloo cluster on cuda:0: {cluster_s:.1f} s with both "
+              f"processes' start; ragged analyze_batch_distributed (3 + 5 songs) "
+              f"{max(r['ragged_s'] for r in reports):.3f} s against one process's analyze_batch "
+              f"{one_s:.3f} s, {'bit for bit' if not gap.any() else 'NOT bit for bit'}, largest gap "
+              f"{gap.max():.3g}; top_k_distributed (60k + 40k rows, k = 100) "
+              f"{max(r['topk_s'] for r in reports) * 1e3:.2f} ms against one process's "
+              f"{topk_s * 1e3:.2f} ms, {'equal' if same_topk else 'NOT equal'} on both; "
+              f"update_library_distributed of {len(files)} files {max(r['update_s'] for r in reports):.1f} s "
+              f"(stored {[r['stored'] for r in reports]}, failed {[r['failed'] for r in reports]}), "
+              f"{len(stored)} songs within {worst:.3g} of the files phase's vectors; launches "
+              f"{[r['launches'] for r in reports]} [{card}]", flush=True)
+        if gap.any():
+            fail(f"cluster: the ragged batch is not bit for bit one process's ({gap.max():.3g})")
+        if not same_topk:
+            fail("cluster: top_k_distributed differs from one process's sharded_top_k")
+        if sorted(stored) != sorted(str(s.path) for s in songs.values()) or worst > LISTED_ATOL:
+            fail(f"cluster: the store holds {len(stored)} songs, {worst:.3g} from the files phase's "
+                 f"{len(songs)} vectors (limit {LISTED_ATOL:g})")
+        if len(failed) != 1 or not failed[0].endswith("testcue.cue"):
+            fail(f"cluster: failed songs {failed}")
+        for r in reports:
+            if any(r["launches"].get(k, 0) < 1 for k in FUSED_PATH):
+                fail(f"cluster: worker {r['rank']} did not launch every kernel of the path: "
+                     f"{r['launches']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def distributed_worker(rank: int, port: int, workdir: str, seed: int) -> None:
+    """One process of `cluster_phase`'s group, on cuda:0."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this worker needs a GPU")
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+    from bliss_tpu_torch.library import BaseConfig, Library
+    from bliss_tpu_torch.ops import _build
+    from bliss_tpu_torch.parallel import distributed as D
+
+    work = pathlib.Path(workdir)
+    mesh = [torch.device("cuda", 0)]
+    D.initialize(f"127.0.0.1:{port}", 2, rank, timeout_seconds=300)
+    report = {"rank": rank}
+    _build.reset_launches()
+    batch = np.load(work / "batch.npy", mmap_mode="r")
+    lengths = np.load(work / "lengths.npy")
+    lo, hi = ((0, 3), (3, batch.shape[0]))[rank]
+    D.analyze_batch_distributed(mesh, batch[lo:hi], lengths[lo:hi])  # warm
+    feats, report["ragged_s"] = wall_s(
+        lambda: D.analyze_batch_distributed(mesh, batch[lo:hi], lengths[lo:hi]))
+    np.save(work / f"ragged_{rank}.npy", feats)
+
+    mat, _ = library_features(seed)
+    seeds = mat[[11, 70_001]]
+    lo, hi = ((0, 60_000), (60_000, LIBRARY_SONGS))[rank]
+    D.top_k_distributed(mesh, mat[lo:hi], lo, LIBRARY_SONGS, seeds, 100)  # warm
+    (idx, dist), report["topk_s"] = wall_s(
+        lambda: D.top_k_distributed(mesh, mat[lo:hi], lo, LIBRARY_SONGS, seeds, 100))
+    np.savez(work / f"topk_{rank}.npz", idx=idx, dist=dist)
+
+    config = BaseConfig(config_path=work / "lib" / "config.json",
+                        database_path=work / "lib" / "songs.db")
+    if rank == 0:
+        lib = Library(config, FallbackDecoder, devices=mesh)
+        D.barrier()
+    else:
+        D.barrier()
+        lib = Library(config, FallbackDecoder, create=False, devices=mesh)
+    (report["stored"], report["failed"]), report["update_s"] = wall_s(
+        lambda: D.update_library_distributed(lib, files_set(), mesh, rank, 2))
+    report["launches"] = dict(_build.LAUNCHES)
+    print("WORKER_REPORT " + json.dumps(report), flush=True)
+    D.barrier()
+    D.shutdown()
+    print(f"WORKER_OK rank={rank}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2192,7 +2557,14 @@ def main() -> None:
                     help="also trace one warm batch with torch.profiler")
     ap.add_argument("--corpus", choices=("default", "full"), default="default",
                     help="files phase: the default set, or every fixture of the drift corpus")
+    ap.add_argument("--distributed-worker", type=int, metavar="RANK",
+                    help="run as process RANK of the multi-device phase's two-process cluster")
+    ap.add_argument("--port", type=int, help="the cluster's port on 127.0.0.1 (with the above)")
+    ap.add_argument("--workdir", help="the cluster's work folder (with the above)")
     args = ap.parse_args()
+    if args.distributed_worker is not None:
+        distributed_worker(args.distributed_worker, args.port, args.workdir, args.seed)
+        return
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -2399,6 +2771,7 @@ def main() -> None:
         print(f"  note: V2 repeat differs by {np.abs(v2 - v2b).max():.3g} (atomics order)")
     if np.abs(v2[:, :10] - v1[:, :10]).max() > 1e-6:
         fail("V1 and V2 disagree on the shared first 10 features")
+    multidevice_batch(batch, lengths, card)
     stage_breakdown(x, lens, frame_mask)
     # both tuning routes below the gate that picks one by the bucket's length
     hold_tuning_routes(
@@ -2431,6 +2804,7 @@ def main() -> None:
 
     # ---- the non-default routes -------------------------------------------
     routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad, card)
+    cluster_batch = batch
     del x, v2, batch
     torch.cuda.empty_cache()
 
@@ -2447,6 +2821,10 @@ def main() -> None:
 
     # ---- the library and its playlists -----------------------------------
     library_phase(args.seed, card, files)
+
+    # ---- the rest of the multi-device phase --------------------------------
+    multidevice_top_k(args.seed, card)
+    cluster_phase(args.seed, cluster_batch, lengths, files, card)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": list(results.values())}))

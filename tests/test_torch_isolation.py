@@ -147,15 +147,18 @@ def test_no_bliss_variables():
     [
         "analyze_samples", "build_analyzer", "analyze_batch", "song",
         "song_with_options", "song_from_path", "analyze_paths", "cue",
-        "analyze_paths_batched",
+        "analyze_paths_batched", "analyze_paths_batched_devices", "make_mesh",
+        "sharded_analyze_batch", "library", "library_devices",
     ],
 )
-def test_default_device_raises_without_cuda(monkeypatch, entry):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path, entry):
     from bliss_tpu_torch import AnalysisOptions, Song
     from bliss_tpu_torch.cue import BlissCue
     from bliss_tpu_torch.io.batch import analyze_paths_batched
     from bliss_tpu_torch.io.decoder import DefaultDecoder
+    from bliss_tpu_torch.library import BaseConfig, Library
     from bliss_tpu_torch.models import analyzer as TA
+    from bliss_tpu_torch.parallel.mesh import make_mesh, sharded_analyze_batch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros(20000, np.float32)
@@ -177,8 +180,40 @@ def test_default_device_raises_without_cuda(monkeypatch, entry):
             DefaultDecoder.analyze_paths([wav])
         elif entry == "cue":
             BlissCue.songs_from_path(DefaultDecoder, REPO / "tests" / "data" / "testcue.cue")
-        else:
+        elif entry == "analyze_paths_batched":
             list(analyze_paths_batched(DefaultDecoder, [wav]))
+        elif entry == "analyze_paths_batched_devices":
+            list(analyze_paths_batched(DefaultDecoder, [wav], devices=["cuda:0", "cuda:0"]))
+        elif entry == "make_mesh":
+            make_mesh()
+        elif entry == "sharded_analyze_batch":
+            sharded_analyze_batch(make_mesh(), x[None], [x.shape[0]])
+        else:
+            config = BaseConfig(config_path=tmp_path / "config.json", database_path=tmp_path / "db")
+            Library(config, devices=["cuda", "cuda"] if entry == "library_devices" else None)
+
+
+def test_every_launch_makes_its_device_current():
+    """Every kernel launch of the port goes through `_build.launch`, which
+    makes the tensors' device the current one around the call and passes
+    that device's stream: no wrapper, bench or test reads a stream or counts
+    a launch itself, and each C entry a wrapper looks up is launched by it."""
+    text = (REPO / "bliss_tpu_torch" / "ops" / "_build.py").read_text()
+    body = text[text.index("def launch(") :]
+    body = body[: body.index("\ndef ")]
+    assert "with torch.cuda.device(device):" in body and "current_stream(device)" in body
+    assert "count_launch(name, device)" in body
+    wrappers = [p for p in sorted((REPO / "bliss_tpu_torch" / "ops").glob("*.py")) if p.name != "_build.py"]
+    callers = sorted((REPO / "bliss_tpu_torch" / "benches").glob("*.py")) + [REPO / "chip_smoke.py"]
+    callers += [p for p in sorted(TESTS.glob("test_torch_*.py")) if p.name != "test_torch_isolation.py"]
+    for path in wrappers + callers:
+        src = path.read_text()
+        for banned in ("stream_ptr", "cuda_stream", "count_launch(", "_build.check("):
+            assert banned not in src, (path.name, banned)
+    for path in wrappers:
+        src = path.read_text()
+        assert src.count("_build.function(") == src.count("_build.launch("), path.name
+    assert sum(p.read_text().count("_build.launch(") for p in wrappers) == 12
 
 
 def test_cuda_path_is_f32_only():

@@ -505,9 +505,9 @@ def test_cuda_ct_kernel_matches_plain(cuda):
     win, tw = TD._constants(w, str(padded.device))
     out = torch.empty((3, nf, w // 2 + 1), device=cuda)
     fn = _build.function("ct_stft", "ct_stft_launch", TD._FRAME_ARGS)
-    _build.check("ct_stft", fn(
-        _build.ptr(padded), 3, padded.shape[1], nf, hop, 13, _build.ptr(win), _build.ptr(tw[0]),
-        _build.ptr(tw[1]), _build.ptr(out), _build.stream_ptr(padded.device)))
+    _build.launch(
+        "ct_stft", fn, padded.device, _build.ptr(padded), 3, padded.shape[1], nf, hop, 13,
+        _build.ptr(win), _build.ptr(tw[0]), _build.ptr(tw[1]), _build.ptr(out))
     ext = torch.nn.functional.pad(padded, (0, (nf - 1) * hop + w - padded.shape[1]))
     assert _frame_rel(out.transpose(1, 2), TD.ct_stft_mags_plain(ext, w, hop, nf), 1) < 1e-5
     for n, width, offset in ((1, 8192, 0), (1001, 8192, 0), (257, 8192, 1), (300, 4096, 0)):

@@ -1,7 +1,7 @@
 """The port's time-sharded long-song analyzer on the CPU: the cases of
 tests/test_longsong.py through both packages on the same numpy inputs.
 
-The port (`shards=8, device="cpu"`, shards as a leading tensor axis) is
+The port (`shards=8, device="cpu"`, the shards as one piece) is
 held against `bliss_tpu.parallel.longsong` on the 8-device CPU mesh and
 against the port's own bucketed analyzer, both at `atol=2e-5` (the JAX
 tests' tolerance: f32 reduction order across shards)."""
@@ -210,16 +210,21 @@ def test_full_width_shapes():
 
 
 def test_halo_exchange_and_collectives():
+    """The collectives over per-device pieces (each split: shards a piece):
+    the halos cross piece boundaries, and the sums and gathers equal one
+    piece's."""
     d, n = 4, 2 * TL.HALO
     x = torch.arange(d * n, dtype=torch.float32).reshape(d, n)
-    left, right = TL.halo_exchange(x)
-    assert left.shape == right.shape == (d, TL.HALO)
-    assert not left[0].any() and not right[-1].any()  # zeros at the global edges
-    for i in range(1, d):
-        assert torch.equal(left[i], x[i - 1, -TL.HALO :])
-        assert torch.equal(right[i - 1], x[i, : TL.HALO])
-    assert torch.equal(TL.psum(x), x.sum(0))
-    assert TL.all_gather(x).reshape(-1).tolist() == x.flatten().tolist()
+    for split in [(4,), (1, 3), (2, 2), (1, 1, 1, 1)]:
+        pieces = list(x.split(list(split)))
+        left, right = (torch.cat(h) for h in TL.halo_exchange(pieces))
+        assert left.shape == right.shape == (d, TL.HALO)
+        assert not left[0].any() and not right[-1].any()  # zeros at the global edges
+        for i in range(1, d):
+            assert torch.equal(left[i], x[i - 1, -TL.HALO :])
+            assert torch.equal(right[i - 1], x[i, : TL.HALO])
+        assert torch.equal(TL.psum(pieces), x.sum(0))
+        assert TL.all_gather(pieces).reshape(-1).tolist() == x.flatten().tolist()
 
 
 @pytest.mark.parametrize("seed,density", [(0, 0.3), (1, 1.0), (2, 0.001), (3, 0.0)])
@@ -232,7 +237,10 @@ def test_global_median_equals_sort_bit_for_bit(seed, density):
     mask = rng.random(vals.shape) < density
     if density == 0.001:
         mask[3, 5, 7] = True
-    got = TL._global_median_midpoint(torch.as_tensor(vals), torch.as_tensor(mask))
+    # three pieces, as on a list of three devices
+    got = TL._global_median_midpoint(
+        list(torch.as_tensor(vals).split([3, 1, 4])), list(torch.as_tensor(mask).split([3, 1, 4]))
+    )
     if mask.any():
         want = TR.masked_quantile_midpoint(
             torch.as_tensor(vals).reshape(1, -1), torch.as_tensor(mask).reshape(1, -1)
@@ -256,7 +264,7 @@ def test_shard_local_strided_frames_are_the_bucketed_frames():
     d, shard_len = 3, 11264
     sig = torch.as_tensor(rng.normal(size=d * shard_len).astype(np.float32))
     shards = sig.view(d, shard_len)
-    left, right = TL.halo_exchange(shards)
+    (left,), (right,) = TL.halo_exchange([shards])
     ext = torch.cat([left, shards, right], dim=1)
     hps, fps_t = shard_len // 256, shard_len // 128
     whole = TD.frame_dft_mags(sig[None], 512, 256, 256, d * hps)[0]
@@ -288,12 +296,12 @@ def test_shard_local_chroma_frames_are_the_reflect_padded_frames(shards, length)
 
     rng = np.random.default_rng(shards)
     sig = rng.normal(size=length + 500).astype(np.float32)  # 500 samples past the song
-    ext, shard_len = TL._extended_shards(sig, length, sig.shape[0], shards, torch.device("cpu"))
+    (ext,), shard_len = TL._extended_shards(sig, length, sig.shape[0], shards, [torch.device("cpu")])
     n_frames = int(n_frames_stft(length, TL.HOP))
     whole = frame_signal_reflect(
         torch.as_tensor(sig[:length])[None], [length], TL.WINDOW, TL.HOP, n_frames
     )[0]
-    base = TL._shard_base(shards, shard_len, "cpu")
+    base = TL._shard_base(0, shards, shard_len, "cpu")
     fps_max = shard_len // TL.HOP + 2
     seen = 0
     for d in range(shards):

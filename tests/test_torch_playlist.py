@@ -360,7 +360,8 @@ def test_isolation_forest_scores_equal(JP):
 
 @pytest.mark.parametrize("kind", ["mahalanobis", "cosine"])
 def test_order_dedup_matches_jax(JP, kind):
-    """`_order_dedup` against `_order_dedup_jit`: the masked stable order and
+    """`_order_dedup` (from the batched seed distances) against
+    `_order_dedup_jit`: the masked stable order and
     every verdict, with planted copies, near and far pairs, metadata twins
     and masked rows."""
     n = 1500
@@ -379,7 +380,9 @@ def test_order_dedup_matches_jax(JP, kind):
     j_order, j_same = JP._order_dedup_jit(kind)(x, seeds, m, mask, meta, np.float32(0.05))
     j_order, j_same = np.asarray(j_order), np.asarray(j_same)
     t = torch.from_numpy
-    order, same = TP._order_dedup(kind, t(x), t(seeds), t(m), t(mask), t(meta), 0.05)
+    dists = (TP._batched_cosine(t(x), t(seeds)) if kind == "cosine"
+             else TP._batched_mahalanobis(t(x), t(seeds), t(m)))
+    order, same = TP._order_dedup(kind, t(x), dists, t(m), t(mask), t(meta), 0.05)
     order, same = order.numpy(), same.numpy()
     live = int(mask.sum())
     dist = _f64_pairs(x, name, [3, 900]).sum(0)
