@@ -25,6 +25,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .errors import AnalysisError, BlissError, DecodingError, ProviderError  # noqa: E402
 from .features import (  # noqa: E402
+    CHANNELS,
     NUMBER_FEATURES,
     SAMPLE_RATE,
     VERSION2_WEIGHTS,
@@ -33,6 +34,8 @@ from .features import (  # noqa: E402
     FeaturesVersion,
 )
 from .song import Analysis, AnalysisOptions, CueInfo, Song  # noqa: E402
+
+__version__ = "0.13.0"  # the bliss-rs feature level, as bliss_tpu's
 
 
 def __getattr__(name):
@@ -51,6 +54,7 @@ __all__ = [
     "AnalysisIndexV1",
     "AnalysisOptions",
     "BlissError",
+    "CHANNELS",
     "CueInfo",
     "DecodingError",
     "FeaturesVersion",

@@ -131,6 +131,7 @@ def analyze_paths_batched(
     longsong_samples: Optional[int] = None,
     longsong_shards: int = 8,
     devices=None,
+    dtype=None,
 ) -> Iterator[Tuple[pathlib.Path, object]]:
     """Decode on host threads + analyze in `[B, T]` batches over `devices`
     (default: `[device]`, else every visible card; entries may repeat).
@@ -143,12 +144,13 @@ def analyze_paths_batched(
     With `longsong_samples` set, a decoded song with more samples than
     that is analyzed alone, time-sharded `longsong_shards` ways over as
     many list entries as divide it, instead of joining a bucket; `None`
-    keeps every song on the bucketed path.
+    keeps every song on the bucketed path. `dtype` is the analysis's
+    (default: f32 on a card, f64 on the CPU; the CPU may take f32).
     """
     options = analysis_options or AnalysisOptions()
     version = int(options.features_version)
     devs = resolve_devices(devices, device)
-    dtype = _resolve_dtype(devs[0], None)
+    dtype = _resolve_dtype(devs[0], dtype)
     paths = [pathlib.Path(p) for p in paths]
     if not paths:
         return

@@ -19,6 +19,7 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 
 from ..errors import BlissError, DecodingError
+from ..features import SAMPLE_RATE  # noqa: F401 (bliss_tpu.io.decoder's name)
 
 logger = logging.getLogger("bliss_tpu_torch")
 

@@ -31,6 +31,7 @@ import os
 import pathlib
 import sqlite3
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, List, NamedTuple, Sequence
 
@@ -885,20 +886,31 @@ class Library:
         analysis_options,
     ) -> None:
         """Incremental set-difference update (src/library.rs:1000-1093)."""
+        paths_extra_info = [
+            (pathlib.Path(p), e) for p, e in paths_extra_info
+        ]
+        to_analyze = self._set_difference(
+            paths_extra_info, delete_everything_else, analysis_options
+        )
+        self.analyze_paths_convert_extra_info(
+            to_analyze, show_progress_bar, convert_extra_info, analysis_options
+        )
+
+    def _set_difference(self, paths_extra_info, delete_everything_else, analysis_options):
+        """The `(path, extra)` pairs whose path is not analyzed at the
+        options' features version. First, with `delete_everything_else`,
+        every analyzed path not among them is deleted; when some are left
+        to analyze, every song of another version is."""
+        version = int(analysis_options.features_version)
         with self._lock:
             existing = {
                 pathlib.Path(r[0])
                 for r in self.sqlite_conn.execute(
                     "select path from song where analyzed = true and "
                     "version = ? order by id",
-                    (int(analysis_options.features_version),),
+                    (version,),
                 )
             }
-        paths_extra_info = [
-            (pathlib.Path(p), e) for p, e in paths_extra_info
-        ]
-        paths = {p for p, _ in paths_extra_info}
-
         if delete_everything_else:
             with self._lock:
                 all_existing = {
@@ -908,22 +920,154 @@ class Library:
                         "order by id"
                     )
                 }
-            self.delete_paths(all_existing - paths)
+            self.delete_paths(all_existing - {p for p, _ in paths_extra_info})
 
         to_analyze = [
             (p, e) for p, e in paths_extra_info if p not in existing
         ]
         if to_analyze:
             with self._lock:
-                self.sqlite_conn.execute(
-                    "delete from song where version != ?",
-                    (int(analysis_options.features_version),),
-                )
+                self.sqlite_conn.execute("delete from song where version != ?", (version,))
                 self.sqlite_conn.commit()
             self._invalidate_matrix_cache()
-        self.analyze_paths_convert_extra_info(
-            to_analyze, show_progress_bar, convert_extra_info, analysis_options
+        return to_analyze
+
+    def update_library_recycled(
+        self,
+        paths,
+        delete_everything_else: bool = False,
+        show_progress_bar: bool = False,
+        segment_songs: int = 256,
+        child_timeout_s: float | None = None,
+        prespawn: bool = True,
+    ) -> None:
+        """`update_library` with the analysis in worker processes of
+        ``segment_songs`` songs each, a fresh interpreter a segment
+        (`python -m bliss_tpu_torch.io.ingest_worker`, started with
+        `subprocess.Popen`: a CUDA context cannot live in a forked child),
+        so no process holds more than one segment's memory for long
+        (counterpart of bliss_tpu/library.py:959-1144).
+
+        The parent does the set difference, the version purge and the
+        deletions, holds no write transaction while a worker writes, and
+        never touches the devices: each worker analyzes on this library's
+        `devices`, passed to it explicitly. A segment whose worker fails or
+        runs past ``child_timeout_s`` (default ``max(900, 10 *
+        segment_songs)`` s) is retried once on a fresh process, whose own
+        set difference analyzes only what the first attempt did not land;
+        a second failure raises `ProviderError`. With ``prespawn`` the next
+        segment's worker starts while this one runs, does its start-up and
+        waits on a gate file until this segment's worker has exited, so one
+        worker analyzes at a time.
+
+        Reference analog: the update loop src/library.rs:1000-1093
+        (single-process)."""
+        import shutil
+        import subprocess
+        import sys
+        import tempfile
+
+        to_analyze = [
+            p for p, _ in self._set_difference(
+                [(pathlib.Path(p), None) for p in paths],
+                delete_everything_else,
+                self.config.analysis_options,
+            )
+        ]
+        if not to_analyze:
+            return
+        if not self.config.config_path.exists():
+            self.config.write()
+
+        decoder = f"{self.decoder_cls.__module__}:{self.decoder_cls.__qualname__}"
+        if self.decoder_cls.__module__ == "__main__" or "<locals>" in decoder:
+            raise ValueError(f"decoder {decoder} cannot be imported by a worker process")
+        timeout = child_timeout_s or max(900.0, 10.0 * segment_songs)
+        segments = [
+            to_analyze[i : i + segment_songs]
+            for i in range(0, len(to_analyze), segment_songs)
+        ]
+        logger.info(
+            "Analyzing %d song(s) in %d recycled segment(s) of <=%d",
+            len(to_analyze), len(segments), segment_songs,
         )
+        staging = tempfile.mkdtemp(prefix="bliss_recycle_")
+        list_paths = []
+        for idx, seg in enumerate(segments):
+            list_path = os.path.join(staging, f"seg_{idx}.paths")
+            with open(list_path, "w") as f:
+                f.write("\n".join(str(p) for p in seg))
+            list_paths.append(list_path)
+        # the worker starts from the package's parent folder, so that
+        # `-m bliss_tpu_torch...` resolves, and reads song paths from ours
+        pkg_parent = str(pathlib.Path(__file__).resolve().parents[1])
+        cwd = os.getcwd()
+
+        def spawn(idx: int, gate):
+            cmd = [
+                sys.executable, "-m", "bliss_tpu_torch.io.ingest_worker",
+                str(pathlib.Path(self.config.config_path).resolve()), list_paths[idx],
+                "--devices", ",".join(str(d) for d in self.devices),
+                "--decoder", decoder,
+                "--cwd", cwd,
+                "--log-level", logging.getLevelName(logger.getEffectiveLevel()),
+            ]
+            if show_progress_bar:
+                cmd.append("--progress")
+            if gate is not None:
+                cmd += ["--gate", gate]
+            return subprocess.Popen(cmd, cwd=pkg_parent)
+
+        next_proc = next_gate = None
+        try:
+            for idx in range(len(segments)):
+                if next_proc is not None:
+                    proc, gate = next_proc, next_gate
+                    next_proc = next_gate = None
+                    # segment idx - 1's worker has exited: open the gate
+                    pathlib.Path(gate).touch()
+                else:
+                    proc = spawn(idx, None)
+                if prespawn and idx + 1 < len(segments):
+                    next_gate = os.path.join(staging, f"gate_{idx + 1}")
+                    next_proc = spawn(idx + 1, next_gate)
+                rc = None
+                for attempt in (1, 2):
+                    if attempt == 2:
+                        # a fresh ungated process; the pre-spawned worker
+                        # of the next segment keeps waiting on its gate
+                        proc = spawn(idx, None)
+                    t0 = time.perf_counter()
+                    try:
+                        # the clock starts at the gate's opening: a gated
+                        # worker's wait is not charged against it
+                        rc = proc.wait(timeout=timeout)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+                        rc = "timeout"
+                    logger.debug(
+                        "recycled segment %d/%d attempt %d: rc %s, %.3f s",
+                        idx + 1, len(segments), attempt, rc, time.perf_counter() - t0,
+                    )
+                    if rc == 0:
+                        break
+                    logger.warning(
+                        "ingest worker segment %d/%d attempt %d failed (rc=%s)%s",
+                        idx + 1, len(segments), attempt, rc,
+                        "" if attempt == 2 else "; retrying on a fresh process",
+                    )
+                if rc != 0:
+                    raise ProviderError(
+                        f"ingest worker for segment {idx + 1}/{len(segments)} "
+                        f"failed twice (rc={rc})"
+                    )
+        finally:
+            if next_proc is not None:
+                next_proc.kill()
+                next_proc.wait()
+            shutil.rmtree(staging, ignore_errors=True)
+        self._invalidate_matrix_cache()
 
     # --- queries -------------------------------------------------------------
 

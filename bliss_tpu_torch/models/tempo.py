@@ -118,6 +118,13 @@ def thresholded_series(onset: torch.Tensor) -> torch.Tensor:
     return proc[..., 5] - median - mean * _PP_THRESHOLD
 
 
+def silence_flags(frames: torch.Tensor) -> torch.Tensor:
+    """Per-hop `is_silence` over framed 512-sample windows `[..., H, 512]`
+    (src/aubio.rs:1258-1276, gate at :1430)."""
+    level = (frames * frames).mean(-1)
+    return 10.0 * torch.log10(level) < SILENCE_DB
+
+
 def silence_flags_blocked(signal: torch.Tensor, h_max: int) -> torch.Tensor:
     """Per-hop `is_silence` `[B, H]` over the raw 512-sample window at hop h,
     `[256h, 256h + 512)` (src/aubio.rs:1258-1276): two 256-sample block

@@ -149,7 +149,22 @@
    `top_k_distributed` over the 100k matrix split 60k/40k (equal), and
    `update_library_distributed` of the files set into one store (every
    song within 1e-6 of the files phase's vector, the CUE's missing file
-   failed).
+   failed);
+13. recycled: the files set through `Library.update_library_recycled` on
+   the card in worker processes of 4 songs, the next one pre-spawned,
+   against `update_library` in this process on the same decoded songs
+   (every vector within 2e-7, tempo equal, the same failed ledger), each
+   worker's launches by (kernel, device) from its debug report (every
+   kernel of the path on cuda:0), a second call that starts no process;
+   each segment's wall time, the start-up seconds pre-spawning hid, the
+   peak RSS of this process and of the workers;
+14. examples: ci_check.sh's example sequence on the port's CLIs
+   (`python3 -m bliss_tpu_torch.examples.<name> ... --device cuda`, four
+   chains at once, the extra-info library in a folder of its own):
+   every exit 0, the .m3u not empty, the printed vector within 1e-6 of
+   the files phase's;
+15. V1 audit: `bliss_tpu_torch/benches/drift.py` over its V1 subset on the
+   card against the CPU f64 path, at most 1e-4 per feature.
 
 Prints one JSON line of per-kernel numbers, the nvidia-smi line, then the
 result line. Any failed phase exits non-zero. Imports nothing of JAX.
@@ -158,6 +173,7 @@ result line. Any failed phase exits non-zero. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -234,12 +250,10 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """nvidia-smi's name and power limit of card 0."""
+    from bliss_tpu_torch.benches import card
+
+    return card("cuda:0")
 
 
 # ---------------------------------------------------------------------------
@@ -1279,7 +1293,7 @@ def files_phase(corpus: str, card: str) -> dict:
     """Files to features on the card through the batch driver, timed with
     and without decoding, held against the port's CPU f64 path on the
     same decoded samples; then the driver over two entries of the card.
-    Returns the card's results by path."""
+    Returns the card's results by path and the decoded songs by path."""
     from bliss_tpu_torch.io import batch as IB
     from bliss_tpu_torch.io.batch import analyze_paths_batched
     from bliss_tpu_torch.io.fallback import FallbackDecoder
@@ -1392,7 +1406,7 @@ def files_phase(corpus: str, card: str) -> dict:
     if failures:
         fail("files phase: " + "; ".join(failures))
     flat_audit(decoded, gpu, cpu)
-    return gpu
+    return gpu, decoded
 
 
 def hold_listed_driver(one_out, one_s, one, listed_out, listed_s, listed, card) -> list:
@@ -2010,49 +2024,21 @@ LIBRARY_SEEDS = 9
 
 
 def library_features(seed: int):
-    """The library phase's `[100k, 23]` features (uniform(-1, 1), 1% of the
-    rows an exact copy of another's) and the generator, drawn on."""
-    n = LIBRARY_SONGS
-    rng = np.random.default_rng(seed)
-    feats = rng.uniform(-1.0, 1.0, size=(n, 23)).astype(np.float32)
-    copies = rng.choice(n, n // 100, replace=False)
-    feats[copies] = feats[(copies + rng.integers(1, n, copies.shape[0])) % n]
-    return feats, rng
+    """The library phase's `[100k, 23]` features and the generator, drawn on
+    (`bliss_tpu_torch/benches/playlist_bench.py:library_features`)."""
+    from bliss_tpu_torch.benches.playlist_bench import library_features as features
+
+    return features(seed, LIBRARY_SONGS)
 
 
 def build_library(folder: pathlib.Path, seed: int):
-    """A 100k-song Version2 SQLite store written through the port's
-    `Library` (benches/playlist_bench.py's rows): features uniform(-1, 1)
-    from `seed`, 1% of the rows an exact copy of another row's features,
-    0.1% repeating their predecessor's (title, artist). Returns the config
-    and each row's feature-vector group (equal vectors, equal group)."""
-    from bliss_tpu_torch.library import BaseConfig, Library
+    """The 100k-song Version2 store of the playlist bench
+    (`bliss_tpu_torch/benches/playlist_bench.py:build_library`), written
+    through the port's `Library` on the card: the config and each row's
+    feature-vector group."""
+    from bliss_tpu_torch.benches.playlist_bench import build_library as build
 
-    n = LIBRARY_SONGS
-    feats, rng = library_features(seed)
-    titles = [f"title {i}" for i in range(n)]
-    artists = [f"artist {i % 997}" for i in range(n)]
-    for i in rng.choice(np.arange(1, n), n // 1000, replace=False):
-        titles[i], artists[i] = titles[i - 1], artists[i - 1]
-    config = BaseConfig(config_path=folder / "config.json", database_path=folder / "songs.db")
-    lib = Library(config, device="cuda")
-    conn = lib.sqlite_conn
-    conn.execute("begin")
-    conn.executemany(
-        "insert into song (path, artist, title, album, duration, analyzed, version, extra_info)"
-        " values (?,?,?,?,?,?,?,?)",
-        ((f"/library/{i // 1000:03d}/song_{i:06d}.flac", artists[i], titles[i],
-          f"album {i // 12}", 210.0, True, 2, "null") for i in range(n)),
-    )
-    ids = [r[0] for r in conn.execute("select id from song order by id")]
-    conn.executemany(
-        "insert into feature (song_id, feature, feature_index) values (?,?,?)",
-        ((ids[i], float(feats[i, j]), j) for i in range(n) for j in range(23)),
-    )
-    conn.commit()
-    lib.config.write()
-    _, group = np.unique(feats, axis=0, return_inverse=True)
-    return config, group.ravel()
+    return build(folder, seed, LIBRARY_SONGS, device="cuda")
 
 
 def f64_seed_distances(mat: torch.Tensor, seed_rows, kind: str, m=None) -> np.ndarray:
@@ -2548,6 +2534,262 @@ def distributed_worker(rank: int, port: int, workdir: str, seed: int) -> None:
     print(f"WORKER_OK rank={rank}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the recycled ingest, the command-line examples, the V1 audit
+# ---------------------------------------------------------------------------
+
+#: Feature gap allowed between the recycled store and the in-process one:
+#: other segments put a song beside other songs (a few f32 ulps, as the
+#: cluster's rounds; tempo is held equal).
+RECYCLED_ATOL = 2e-7
+
+
+@contextlib.contextmanager
+def stderr_to(path: pathlib.Path):
+    """File descriptor 2 (this process's and every child's standard error)
+    into `path` for the block."""
+    import os
+
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with open(path, "wb") as f:
+        os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def stored_vectors(lib) -> dict:
+    return {str(s.bliss_song.path): s.bliss_song.analysis.as_arr1()
+            for s in lib.songs_from_library()}
+
+
+def recycled_phase(files: dict, decoded: dict, card: str, segment_songs: int = 4) -> None:
+    """The files phase's default set through `Library.update_library_recycled`
+    on the card in worker processes of `segment_songs` songs, the next one
+    pre-spawned, against `update_library` in this process on the same
+    decoded songs, both with one decode thread (`number_cores = 1`: the
+    pure-Python decoders hold the GIL, and the files phase decodes the set
+    faster with one worker than with threads): every vector within
+    RECYCLED_ATOL (tempo equal), the same failed ledger, each worker's
+    kernel launches on cuda:0 (read from its debug report on standard
+    error), and a second call that starts no process. Prints each
+    segment's wall time, the start-up seconds that pre-spawning hid, and
+    the peak resident memory of this process and of the workers."""
+    import logging
+    import shutil
+
+    from bliss_tpu_torch.benches import decode_once
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+    from bliss_tpu_torch.library import BaseConfig, Library
+    from bliss_tpu_torch.song import AnalysisOptions, Song
+    from bliss_tpu_torch.utils.profiling import RssSampler
+
+    work = REPO / "tmp" / "smoke_recycled"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths = [str(p) for p in files_set()]
+    failures = []
+    try:
+        known, _ = decode_once(paths, decoded)
+        options = AnalysisOptions(number_cores=1)
+        ref = Library(BaseConfig(config_path=work / "inproc" / "config.json",
+                                 database_path=work / "inproc" / "songs.db",
+                                 analysis_options=options), known, device="cuda")
+        ref.update_library(paths)
+        want = stored_vectors(ref)
+        want_failed = sorted(str(e.song_path) for e in ref.get_failed_songs())
+
+        lib = Library(BaseConfig(config_path=work / "rec" / "config.json",
+                                 database_path=work / "rec" / "songs.db",
+                                 analysis_options=options), FallbackDecoder, device="cuda")
+        log = logging.getLogger("bliss_tpu_torch")
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter("%(levelname)s %(name)s: %(message)s"))
+        level = log.level
+        log.addHandler(handler)
+        log.setLevel(logging.DEBUG)  # the workers' reports are debug lines
+        try:
+            with stderr_to(work / "stderr.log"), RssSampler(period=0.5) as rss:
+                t0 = time.perf_counter()
+                lib.update_library_recycled(paths, segment_songs=segment_songs)
+                rec_s = time.perf_counter() - t0
+        finally:
+            log.removeHandler(handler)
+            log.setLevel(level)
+        err = (work / "stderr.log").read_text(errors="replace")
+        reports = [json.loads(line.split("ingest worker report ", 1)[1])
+                   for line in err.splitlines() if "ingest worker report " in line]
+        segments = [line.split("recycled segment ", 1)[1] for line in err.splitlines()
+                    if "recycled segment " in line]
+
+        got = stored_vectors(lib)
+        got_failed = sorted(str(e.song_path) for e in lib.get_failed_songs())
+        worst = 0.0
+        if sorted(got) != sorted(want):
+            failures.append(f"the recycled store holds {sorted(set(got) ^ set(want))} apart")
+        for key in sorted(set(got) & set(want)):
+            gap = np.abs(got[key] - want[key])
+            worst = max(worst, float(gap.max()))
+            if gap[0] != 0:
+                failures.append(f"{key}: tempo {got[key][0]} recycled, {want[key][0]} in process")
+        if worst > RECYCLED_ATOL:
+            failures.append(f"a recycled vector {worst:.3g} from the in-process one "
+                            f"(limit {RECYCLED_ATOL:g})")
+        if got_failed != want_failed:
+            failures.append(f"failed ledger {got_failed}, in process {want_failed}")
+        n_seg = -(-len(paths) // segment_songs)
+        if len(reports) != n_seg:
+            failures.append(f"{len(reports)} worker reports for {n_seg} segments")
+        for i, r in enumerate(reports):
+            seg = paths[i * segment_songs : (i + 1) * segment_songs]
+            songs = [p for p in seg if isinstance(files.get(p), Song)]
+            devices = {k.split("@", 1)[1] for k in r["launches"]}
+            if devices - {"cuda:0"}:
+                failures.append(f"worker {i}: launches on {sorted(devices)}")
+            if songs and any(r["launches"].get(f"{k}@cuda:0", 0) < 1 for k in FUSED_PATH):
+                failures.append(f"worker {i}: not every kernel of the path on cuda:0: "
+                                f"{r['launches']}")
+            if r["devices"] != [str(lib.device)]:
+                failures.append(f"worker {i} analyzed on {r['devices']}, not {lib.device}")
+
+        # a second call over the paths that landed (a failed path is tried
+        # again, as by update_library): nothing to analyze, no process
+        landed = [p for p in paths if p not in got_failed]
+        started = []
+        popen = subprocess.Popen
+
+        def counting(*a, **k):
+            started.append(a)
+            return popen(*a, **k)
+
+        subprocess.Popen = counting
+        try:
+            lib.update_library_recycled(landed, segment_songs=segment_songs)
+        finally:
+            subprocess.Popen = popen
+        if started:
+            failures.append(f"a second call started {len(started)} processes")
+        print(f"recycled: {len(paths)} files in {n_seg} segments of <= {segment_songs} through "
+              f"update_library_recycled in {rec_s:.2f} s; {len(got)} songs within {worst:.3g} of "
+              f"update_library in this process (limit {RECYCLED_ATOL:g}, tempo equal), failed "
+              f"{[pathlib.Path(p).name for p in got_failed]}; segments: {'; '.join(segments)}; "
+              f"worker start-up {', '.join(f'{r['ready_s']:.2f}' for r in reports)} s, of it "
+              f"hidden by pre-spawn {', '.join(f'{r['hidden_s']:.2f}' for r in reports)} s; "
+              f"peak RSS this process {rss.root_peak_mb:.0f} MB, largest worker "
+              f"{max((r['peak_rss_mb'] for r in reports), default=0.0):.0f} MB, all processes "
+              f"{rss.peak_mb:.0f} MB; a second call over the {len(landed)} files that landed started "
+              f"{len(started)} processes [{card}]",
+              flush=True)
+        for i, r in enumerate(reports):
+            print(f"  worker {i}: {r['paths']} paths, segment {r['segment_s']:.2f} s, launches "
+                  f"{r['launches']}", flush=True)
+        if failures:
+            print(err[-4000:], file=sys.stderr)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        fail("recycled phase: " + "; ".join(failures))
+
+
+def examples_phase(files: dict, card: str) -> None:
+    """ci_check.sh's example sequence on the port's command-line examples
+    (`python3 -m bliss_tpu_torch.examples.<name> ... --device cuda`), in
+    four chains that run at once (each library's init, then its playlist;
+    the extra-info library in a folder of its own, so the two stores do
+    not share a file): every exit 0, the .m3u not empty, the printed
+    vector of s16_mono_22_5kHz.flac within 1e-6 of the files phase's."""
+    import shutil
+
+    work = REPO / "tmp" / "smoke_examples"
+    shutil.rmtree(work, ignore_errors=True)
+    music = work / "music"
+    music.mkdir(parents=True)
+    for name in ("s16_mono_22_5kHz.flac", "piano.flac", "s32_stereo_44_1_kHz.mp3"):
+        shutil.copy(DATA / name, music / name)
+    seed = str(music / "s16_mono_22_5kHz.flac")
+    chains = [
+        [("analyze", ["tests/data/s16_mono_22_5kHz.flac"]),
+         ("distance", ["tests/data/s16_mono_22_5kHz.flac", "tests/data/piano.flac"])],
+        [("playlist", [str(music), "-o", str(work / "playlist.m3u"),
+                       "-a", str(work / "analysis.json")])],
+        [("library", ["init", str(music), "-c", str(work / "config.json"),
+                      "-d", str(work / "songs.db")]),
+         ("library", ["playlist", "-c", str(work / "config.json"), seed, "2"])],
+        [("library_extra_info", ["init", str(music), "-c",
+                                 str(work / "extra" / "config_extra.json")]),
+         ("library_extra_info", ["playlist", "-c", str(work / "extra" / "config_extra.json"),
+                                 seed, "2"])],
+    ]
+    outs: dict = {}
+
+    def run_chain(chain):
+        for name, args in chain:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"bliss_tpu_torch.examples.{name}", *args,
+                 "--device", "cuda"],
+                cwd=REPO, capture_output=True, text=True, timeout=600,
+            )
+            label = name if args[0] not in ("init", "playlist") else f"{name} {args[0]}"
+            outs[label] = (proc, time.perf_counter() - t0)
+            if proc.returncode != 0:
+                return
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(chains)) as pool:
+            list(pool.map(run_chain, chains))
+        wall = time.perf_counter() - t0
+        failures = [f"{k} exited {p.returncode}: {p.stderr[-1500:]}"
+                    for k, (p, _) in outs.items() if p.returncode != 0]
+        if len(outs) != sum(map(len, chains)):
+            failures.append(f"{len(outs)} of {sum(map(len, chains))} steps ran")
+        m3u = work / "playlist.m3u"
+        if not m3u.exists() or not m3u.read_text().strip():
+            failures.append("the .m3u is empty")
+        gap = None
+        analyze = outs.get("analyze")
+        ref = files.get(str(DATA / "s16_mono_22_5kHz.flac"))
+        if analyze and analyze[0].returncode == 0:
+            vec = np.asarray(json.loads(analyze[0].stdout.strip().split(": ", 1)[1]), np.float32)
+            gap = float(np.abs(vec - ref.analysis.as_arr1()).max())
+            if gap > 1e-6:
+                failures.append(f"analyze's vector {gap:.3g} from the files phase's (limit 1e-6)")
+        print(f"examples: ci_check.sh's {sum(map(len, chains))} steps with --device cuda in "
+              f"{wall:.1f} s ({', '.join(f'{k} {s:.1f} s' for k, (_, s) in outs.items())}); "
+              f"every exit {'0' if not failures else 'NOT 0'}, playlist.m3u "
+              f"{len(m3u.read_text().splitlines()) if m3u.exists() else 0} lines, analyze's vector "
+              f"{gap} from the files phase's [{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        fail("examples phase: " + "; ".join(failures))
+
+
+def v1_audit(decoded: dict, card: str) -> None:
+    """`bliss_tpu_torch/benches/drift.py`'s audit at V1 over its V1_SUBSET
+    on the card against the CPU f64 path (the files phase's decoded songs
+    reused): at most 1e-4 per feature on real content."""
+    from bliss_tpu_torch.benches import drift
+
+    t0 = time.perf_counter()
+    result = drift.audit([], drift.V1_SUBSET, "cuda", decoded=decoded,
+                         log=lambda line: print(f"  {line}", flush=True))
+    v1 = result["v1"]
+    print(f"V1 audit: {v1['entries']} files of V1_SUBSET on the card at f32 against the CPU f64 "
+          f"path in {time.perf_counter() - t0:.1f} s: {v1['real']} real content, max "
+          f"{v1['max_real']:.3g}, p99 {v1['p99_real']:.3g} (limit {drift.REAL_LIMIT:g}); "
+          f"{'meets' if result['ok'] else 'BREAKS'} the contract [{card}]", flush=True)
+    if not result["ok"] or v1["real"] != len(drift.V1_SUBSET):
+        fail("V1 audit: " + "; ".join(result["failures"] or [f"{v1['real']} real-content files"]))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2817,7 +3059,7 @@ def main() -> None:
     del song21
 
     # ---- files -----------------------------------------------------------
-    files = files_phase(args.corpus, card)
+    files, decoded = files_phase(args.corpus, card)
 
     # ---- the library and its playlists -----------------------------------
     library_phase(args.seed, card, files)
@@ -2825,6 +3067,12 @@ def main() -> None:
     # ---- the rest of the multi-device phase --------------------------------
     multidevice_top_k(args.seed, card)
     cluster_phase(args.seed, cluster_batch, lengths, files, card)
+
+    # ---- the recycled ingest, the command-line examples, the V1 audit ------
+    torch.cuda.empty_cache()
+    recycled_phase(files, decoded, card)
+    examples_phase(files, card)
+    v1_audit(decoded, card)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": list(results.values())}))

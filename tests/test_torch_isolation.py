@@ -129,7 +129,7 @@ def test_no_environment_switches():
     only reads of the environment are library.py's XDG folders."""
     for path in PORT_FILES:
         text = path.read_text()
-        if path.name == "library.py":
+        if path == REPO / "bliss_tpu_torch" / "library.py":
             reads = set(re.findall(r"os\.environ\.get\([^)]*\)", text))
             assert reads == XDG_READS, reads
             text = re.sub(r"os\.environ\.get\(\"XDG_(CONFIG|DATA)_HOME\"\)", "", text)
@@ -148,7 +148,7 @@ def test_no_bliss_variables():
         "analyze_samples", "build_analyzer", "analyze_batch", "song",
         "song_with_options", "song_from_path", "analyze_paths", "cue",
         "analyze_paths_batched", "analyze_paths_batched_devices", "make_mesh",
-        "sharded_analyze_batch", "library", "library_devices",
+        "sharded_analyze_batch", "library", "library_devices", "example", "bench",
     ],
 )
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path, entry):
@@ -188,6 +188,14 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path, entry):
             make_mesh()
         elif entry == "sharded_analyze_batch":
             sharded_analyze_batch(make_mesh(), x[None], [x.shape[0]])
+        elif entry == "example":
+            from bliss_tpu_torch.examples import analyze
+
+            analyze.main([str(wav)])
+        elif entry == "bench":
+            from bliss_tpu_torch.benches import microbench
+
+            microbench.main([])
         else:
             config = BaseConfig(config_path=tmp_path / "config.json", database_path=tmp_path / "db")
             Library(config, devices=["cuda", "cuda"] if entry == "library_devices" else None)
