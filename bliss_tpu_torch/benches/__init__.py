@@ -9,6 +9,8 @@ the card's name and power limit (`card`, null off a card):
 - `soak`: `update_library` (or `update_library_recycled`) over a
   synthesized library, with the process tree's resident memory;
 - `microbench`: warm medians of decoding and of each descriptor stage.
+- `scaling_bench`: weak scaling of the device-list paths over 1, 2 and N
+  entries, bit for bit against one entry, and a gloo group's cost a round.
 
 `fixtures` writes the headline's full-length WAV mix. The other files
 here compare kernels or routes beside another checkout.

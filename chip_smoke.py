@@ -111,7 +111,9 @@
    and the bucketed route's time by stage, holds a 21-minute song's
    sharded vector against the CPU f64 path (<= 2e-2, same dominant
    chroma), and runs `analyze_paths_batched` over that song as a WAV file
-   with `longsong_samples` set, equal to the bucketed result at 2e-5;
+   with the default long-song route: over [cuda:0, cuda:0] it must take
+   the sharded route in 2 shards (the song is above the 20-minute bound),
+   over [cuda:0] the bucket, the two vectors within 2e-5, tempo equal;
 11. library: a 100k-song Version2 SQLite store written through the port's
    `Library` (features uniform(-1, 1) from `--seed`, 1% of the rows an
    exact copy of another's features, 0.1% repeating their predecessor's
@@ -149,7 +151,10 @@
    `top_k_distributed` over the 100k matrix split 60k/40k (equal), and
    `update_library_distributed` of the files set into one store (every
    song within 1e-6 of the files phase's vector, the CUE's missing file
-   failed);
+   failed); then the scaling phase (its lines start "scaling:"):
+   `bliss_tpu_torch/benches/scaling_bench.py:run_lists` at the bench's
+   card sizes over 1, 2 and 4 entries of cuda:0, each list's features,
+   top-k, chroma and long-song vector bit for bit against one entry's;
 13. recycled: the files set through `Library.update_library_recycled` on
    the card in worker processes of 4 songs, the next one pre-spawned,
    against `update_library` in this process on the same decoded songs
@@ -166,8 +171,8 @@
 15. V1 audit: `bliss_tpu_torch/benches/drift.py` over its V1 subset on the
    card against the CPU f64 path, at most 1e-4 per feature.
 
-Prints one JSON line of per-kernel numbers, the nvidia-smi line, then the
-result line. Any failed phase exits non-zero. Imports nothing of JAX.
+Prints each phase's seconds and the whole run's, one JSON line of
+per-kernel numbers, the nvidia-smi line, then the result line. Any failed phase exits non-zero. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1325,12 +1330,13 @@ def files_phase(corpus: str, card: str) -> dict:
                 return FallbackDecoder.decode(path)
             return dataclasses.replace(song, sample_array=song.sample_array.copy())
 
-    def run(decoder, device, workers=None, devices=None):
+    def run(decoder, device, workers=None, devices=None, longsong_samples=None):
         t0 = time.perf_counter()
         out = {
             str(p): r
             for p, r in analyze_paths_batched(
-                decoder, paths, device=device, decode_workers=workers, devices=devices
+                decoder, paths, device=device, decode_workers=workers, devices=devices,
+                longsong_samples=longsong_samples,
             )
         }
         if device != "cpu":
@@ -1358,7 +1364,9 @@ def files_phase(corpus: str, card: str) -> dict:
         groups.clear()
         _build.reset_launches()
         dev0 = torch.device("cuda", 0)
-        two, two_s = run(Decoded, None, devices=[dev0, dev0])
+        # every song in the buckets (`--corpus full`'s 21-minute medley would
+        # take the default long-song route over two entries)
+        two, two_s = run(Decoded, None, devices=[dev0, dev0], longsong_samples=10**9)
         listed = (list(groups), dict(_build.LAUNCHES_ON))
     finally:
         IB.analyze_tensor = analyze_tensor
@@ -1983,34 +1991,55 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     if d > 2e-2 or not same_argmax:
         fail("long song: 21-minute synthetic song drift")
 
-    # ---- the long-song route of analyze_paths_batched over a file ----------
-    with tempfile.TemporaryDirectory() as tmp:
-        wav = pathlib.Path(tmp) / "long.wav"
-        with wave.open(str(wav), "wb") as w:
-            w.setnchannels(1)
-            w.setsampwidth(2)
-            w.setframerate(22050)
-            w.writeframes(np.clip(song21 * 32767, -32768, 32767).astype("<i2").tobytes())
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        routed = dict(analyze_paths_batched(
-            FallbackDecoder, [wav], device="cuda", longsong_samples=20 * 60 * 22050,
-            longsong_shards=shards,
-        ))[wav]
-        routed_s = time.perf_counter() - t0
-        r_launches = dict(_build.LAUNCHES)
-        _build.reset_launches()
-        plain = dict(analyze_paths_batched(FallbackDecoder, [wav], device="cuda"))[wav]
-        p_launches = dict(_build.LAUNCHES)
+    # ---- the driver's default long-song route over a file -----------------
+    # no `longsong_samples`: over two entries the 21-minute song (above the
+    # JAX driver's 20-minute bound) is sharded one shard an entry, over one
+    # entry it joins a bucket
+    calls = []
+    sharded_entry = LS.sharded_analyze_samples
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return sharded_entry(*args, **kwargs)
+
+    LS.sharded_analyze_samples = spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            wav = pathlib.Path(tmp) / "long.wav"
+            with wave.open(str(wav), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(22050)
+                w.writeframes(np.clip(song21 * 32767, -32768, 32767).astype("<i2").tobytes())
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            routed = dict(analyze_paths_batched(FallbackDecoder, [wav], devices=[dev, dev]))[wav]
+            routed_s = time.perf_counter() - t0
+            r_launches, r_calls = dict(_build.LAUNCHES), list(calls)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            plain = dict(analyze_paths_batched(FallbackDecoder, [wav], devices=[dev]))[wav]
+            plain_s = time.perf_counter() - t0
+            p_launches, p_calls = dict(_build.LAUNCHES), calls[len(r_calls):]
+    finally:
+        LS.sharded_analyze_samples = sharded_entry
     if not isinstance(routed, Song) or not isinstance(plain, Song):
         fail(f"long-song file route: {routed!r} {plain!r}")
-    d = np.abs(routed.analysis.as_arr1() - plain.analysis.as_arr1()).max()
-    print(f"  analyze_paths_batched over a 21-min WAV: long-song route {routed_s:.2f} s (decode included), vs the "
-          f"bucketed route max {d:.3g} (limit 2e-5)", flush=True)
+    rv, pv = routed.analysis.as_arr1(), plain.analysis.as_arr1()
+    d = np.abs(rv - pv).max()
+    r_shards = [c.get("shards") for c in r_calls]
+    print(f"  analyze_paths_batched over a 21-min WAV ({n21} samples), default route: over "
+          f"[cuda:0, cuda:0] {len(r_calls)} sharded call(s) of {r_shards} shards in {routed_s:.2f} s, "
+          f"over [cuda:0] {len(p_calls)} sharded call(s), bucketed in {plain_s:.2f} s (decode "
+          f"included); vectors max {d:.3g} (limit 2e-5), tempo "
+          f"{'equal' if rv[0] == pv[0] else 'DIFFERS'} [{card}]", flush=True)
+    if r_shards != [2] or p_calls:
+        fail(f"default long-song route: sharded calls over two entries {r_shards}, over one "
+             f"{len(p_calls)}")
     if r_launches.get("ct_frames", 0) < 1 or p_launches.get("ct_frames", 0):
         fail(f"long-song file route: launches routed {r_launches}, bucketed {p_launches}")
-    if d > 2e-5:
-        fail(f"long-song file route: routed vs bucketed {d:.3g} > 2e-5")
+    if d > 2e-5 or rv[0] != pv[0]:
+        fail(f"long-song file route: routed vs bucketed {d:.3g} (limit 2e-5, tempo equal)")
 
 
 
@@ -2382,6 +2411,22 @@ def multidevice_top_k(seed: int, card: str) -> None:
               f"the CPU's, distances within {rel:.3g} [{card}]", flush=True)
         if not (np.array_equal(idx, want_idx) and np.array_equal(pidx, want_idx)) or rel > 1e-5:
             fail(f"sharded_top_k over {len(mesh)} entries: other rows than the CPU's or {rel:.3g} > 1e-5")
+
+
+def scaling_phase(card: str) -> None:
+    """The scaling bench's lists (`bliss_tpu_torch/benches/scaling_bench.py`,
+    its card sizes: 8 x 5-min songs, 100,000 library rows and 7.5 minutes of
+    one song an entry) over 1, 2 and 4 entries of cuda:0, one warm call a
+    path: every list's features, top-k, chroma and long-song vector bit for
+    bit against one entry's, finite."""
+    from bliss_tpu_torch.benches import scaling_bench as SB
+
+    rows = SB.run_lists("cuda:0", (1, 2, 4), SB.CARD_SIZES, repeat=1,
+                        log=lambda line, **_: print(f"scaling: {line} [{card}]", flush=True))
+    bad = [r["entries"] for r in rows if not (r["bit_for_bit"] and r["finite"])]
+    if bad:
+        fail(f"scaling: lists of {bad} entries not bit for bit with one entry, or not finite "
+             f"({[r['held'] for r in rows]})")
 
 
 def cluster_phase(seed: int, batch, lengths, files: dict, card: str, timeout: float = 400.0) -> None:
@@ -2829,6 +2874,14 @@ def main() -> None:
     card = card_line()
     dev = torch.device("cuda", 0)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    phase_s: dict = {}
+    phase_t0 = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Close phase `name`: its seconds since the last lap."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - phase_t0[0], 1)
+        phase_t0[0] = now
 
     # ---- build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2838,6 +2891,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    lap("build")
 
     # ---- data ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2974,6 +3028,7 @@ def main() -> None:
         call_ms=held["call_ms"],
         path="none: block_inputs computes it; held to show where a difference starts")
     hold_autocorr_edges(dev)
+    lap("data and kernels")
 
     # ---- the main path ---------------------------------------------------
     _build.reset_launches()
@@ -3021,6 +3076,7 @@ def main() -> None:
     )
     if args.profile:
         profile_batch(batch, lengths)
+    lap("main path")
 
     # ---- against the CPU f64 path ----------------------------------------
     piano = piano_samples()
@@ -3045,7 +3101,9 @@ def main() -> None:
     del lens, frame_mask, v2b, v1
 
     # ---- the non-default routes -------------------------------------------
+    lap("against CPU f64")
     routes_phase(record, results, x, batch, lengths, v2, cpu0, piano, tpad, card)
+    lap("routes")
     cluster_batch = batch
     del x, v2, batch
     torch.cuda.empty_cache()
@@ -3053,28 +3111,41 @@ def main() -> None:
     # ---- long buckets: the unfused tuning route --------------------------
     long_phase(rng, results, card, 8, 420.0, record_json=True)
     song21 = long_phase(rng, results, card, 2, 1260.0, record_json=False)
+    lap("long buckets")
 
     # ---- one 60-minute song, time-sharded ---------------------------------
     longsong_phase(rng, record, results, song21, card)
     del song21
+    lap("long song")
 
     # ---- files -----------------------------------------------------------
     files, decoded = files_phase(args.corpus, card)
+    lap("files")
 
     # ---- the library and its playlists -----------------------------------
     library_phase(args.seed, card, files)
+    lap("library")
 
     # ---- the rest of the multi-device phase --------------------------------
     multidevice_top_k(args.seed, card)
     cluster_phase(args.seed, cluster_batch, lengths, files, card)
+    del cluster_batch
+    lap("multi-device")
+    torch.cuda.empty_cache()
+    scaling_phase(card)
+    lap("scaling")
 
     # ---- the recycled ingest, the command-line examples, the V1 audit ------
     torch.cuda.empty_cache()
     recycled_phase(files, decoded, card)
+    lap("recycled")
     examples_phase(files, card)
+    lap("examples")
     v1_audit(decoded, card)
+    lap("V1 audit")
 
-    print(f"smoke run: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+    print(f"smoke run: phase seconds {json.dumps(phase_s)}; "
+          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": list(results.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -149,6 +149,7 @@ def test_no_bliss_variables():
         "song_with_options", "song_from_path", "analyze_paths", "cue",
         "analyze_paths_batched", "analyze_paths_batched_devices", "make_mesh",
         "sharded_analyze_batch", "library", "library_devices", "example", "bench",
+        "scaling_bench",
     ],
 )
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path, entry):
@@ -196,6 +197,10 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path, entry):
             from bliss_tpu_torch.benches import microbench
 
             microbench.main([])
+        elif entry == "scaling_bench":
+            from bliss_tpu_torch.benches import scaling_bench
+
+            scaling_bench.main(["--entries", "2"])
         else:
             config = BaseConfig(config_path=tmp_path / "config.json", database_path=tmp_path / "db")
             Library(config, devices=["cuda", "cuda"] if entry == "library_devices" else None)

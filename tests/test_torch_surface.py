@@ -1,6 +1,7 @@
 """The port's surface: every public name of every bliss_tpu module has its
 counterpart at the same module path of bliss_tpu_torch, but for the names
-listed in EXCEPTIONS, each with its reason."""
+listed in EXCEPTIONS, each with its reason; and every bench of the JAX repo
+has its module under bliss_tpu_torch/benches/, but for BENCH_EXCEPTIONS."""
 
 import pytest
 
@@ -53,6 +54,31 @@ EXCEPTIONS = {
     ("bliss_tpu.ops.pallas_select", "*"):
         "the Pallas kernel factories: csrc/tuning.cu with ops/tuning_kernels.py",
 }
+
+
+#: The JAX repo's benches (by path) whose counterpart module under
+#: bliss_tpu_torch/benches/ has another name.
+BENCH_NAMES = {"benches/tpu_drift.py": "drift", "bench.py": "bench"}
+#: JAX benches (by path) the port has no counterpart of -> why.
+BENCH_EXCEPTIONS: dict = {}
+JAX_BENCHES = sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "benches").glob("*.py")
+) + ["bench.py"]
+
+
+@pytest.mark.parametrize("path", JAX_BENCHES)
+def test_every_bench_has_its_counterpart(path):
+    """Each bench of the JAX repo has a module of bliss_tpu_torch/benches/
+    (`BENCH_NAMES` where the name differs), but those `BENCH_EXCEPTIONS`
+    lists with their reasons, which the port really lacks."""
+    name = BENCH_NAMES.get(path, pathlib.Path(path).stem)
+    port = REPO / "bliss_tpu_torch" / "benches" / f"{name}.py"
+    assert (REPO / path).is_file()
+    if path in BENCH_EXCEPTIONS:
+        assert len(BENCH_EXCEPTIONS[path]) > 20 and not port.exists(), path
+    else:
+        assert port.is_file(), f"{path} has no counterpart {port.relative_to(REPO)}"
+        importlib.import_module(f"bliss_tpu_torch.benches.{name}")
 
 
 def _jax_modules():
