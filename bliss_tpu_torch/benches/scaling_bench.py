@@ -1,8 +1,7 @@
 """Weak scaling of the device-list paths, and a gloo group's cost a round
 (counterpart of benches/scaling_bench.py).
 
-    python -m bliss_tpu_torch.benches.scaling_bench [--device cuda] [--entries 8]
-        [--small] [--repeat 3] [--rounds 5] [--seed 0]
+    python -m bliss_tpu_torch.benches.scaling_bench [--device cuda] [--entries 8] [--small]
 
 Over device lists of 1, 2 and `--entries` entries (on a card: every visible
 card in turn, repeated to the length; `--device cuda:K` repeats card K; on
@@ -24,7 +23,7 @@ entry (the 60-minute song at 8 entries). With `--small` or on the CPU: the
 JAX bench's sizes, one song of `1 << 17` samples, 4,096 rows and `1 << 16`
 samples an entry.
 
-Each path's time is the median of `--repeat` warm calls after one untimed
+Each path's time is the median of `REPEAT` warm calls after one untimed
 call, each ended by a synchronize (the paths return numpy). Per list it
 prints those seconds, `weak_scaling_efficiency_analyze` = t(1)/t(N) (the
 JAX bench's metric), `per_entry_overhead` = t(N) / (N t(1)) for each path
@@ -36,12 +35,16 @@ on the same inputs); otherwise the bench exits 1 after its JSON line.
 Then the gloo group's cost a round (the JAX bench's `_dcn_overhead_bench`):
 two processes of one `parallel.distributed` group on 127.0.0.1 (this
 module with `--worker RANK --port P`; on a card both on the same card),
-each timing `rounds` `analyze_batch_distributed` rounds against the same
-rows through `analyze_batch`, 4 songs a process (5 minutes on a card,
-16,384 samples with `--small` or on the CPU), and the round's one
-exchange alone (`process_allgather` of its two integers), a warm round of
-each first and a barrier before and after every timed round; medians a
-rank, and whether the two routes' features are equal.
+each timing `ROUNDS` rounds of three entries on the same rows, 4 songs a
+process (5 minutes on a card, 16,384 samples with `--small` or on the
+CPU): `analyze_batch_distributed`, `sharded_analyze_batch` over the
+process's one device on the rows already at the global length (the
+distributed round without its exchange and its padded copy) and local
+`analyze_batch`; then the round's one exchange alone (`process_allgather`
+of its two integers). A warm round of each first and a barrier before and
+after every timed round; medians a rank, each rank's distributed round
+above its local one (`overhead_ms`), and whether the three entries'
+features are equal. The data come from `SEED`.
 
 Prints one JSON line last, with the card's name and power limit (`card`).
 `--device cuda` without a card raises.
@@ -73,6 +76,10 @@ SMALL_SIZES = {"songs": 1, "song_samples": (1 << 17) - 17, "rows": 4096,
                "long_samples": 1 << 16, "gloo_song_samples": 16384 - 11}
 #: Songs a process in the gloo rounds, and how long a worker may take.
 GLOO_SONGS = 4
+#: Warm calls a path, timed gloo rounds an entry, and the data's seed.
+REPEAT = 3
+ROUNDS = 5
+SEED = 0
 GLOO_TIMEOUT_S = 600.0
 
 
@@ -193,7 +200,7 @@ def run_list(devs: list, inputs: dict, sizes: dict, repeat: int, one: dict | Non
 PATHS = ("analyze", "top_k", "chroma", "longsong")
 
 
-def run_lists(device: str, entries, sizes: dict, repeat: int = 3, seed: int = 0,
+def run_lists(device: str, entries, sizes: dict, repeat: int = REPEAT, seed: int = SEED,
               log=print) -> list:
     """`run_list` over lists of each count in `entries` (the first 1), each
     list's efficiency and overheads against the one-entry list's seconds."""
@@ -222,18 +229,19 @@ def run_lists(device: str, entries, sizes: dict, repeat: int = 3, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def gloo_worker(rank: int, port: int, device: str, small: bool, rounds: int, seed: int) -> None:
-    """One process of the two-process group: `rounds` distributed and local
-    rounds on the same rows; rank 0 prints `SCALING_GLOO {json}`."""
+def gloo_worker(rank: int, port: int, device: str, small: bool) -> None:
+    """One process of the two-process group: `ROUNDS` rounds of each entry
+    on the same rows; rank 0 prints `SCALING_GLOO {json}`."""
     import torch
 
     from ..models.analyzer import analyze_batch, bucket_length, resolve_device
     from ..parallel import distributed as D
+    from ..parallel.mesh import sharded_analyze_batch
 
     dev = resolve_device(device)
     sizes = sizes_for(device, small)
     n = sizes["gloo_song_samples"]
-    rng = np.random.default_rng(seed + 7 + rank)
+    rng = np.random.default_rng(SEED + 7 + rank)
     sigs = np.zeros((GLOO_SONGS, bucket_length(n)), np.float32)
     sigs[:, :n] = songs(rng, GLOO_SONGS, n)
     lens = np.full(GLOO_SONGS, n, np.int64)
@@ -242,18 +250,24 @@ def gloo_worker(rank: int, port: int, device: str, small: bool, rounds: int, see
         def distributed():
             return D.analyze_batch_distributed([dev], sigs, lens)
 
+        def sharded():
+            # both ranks' rows share one bucket: `sigs` is at the global length
+            return sharded_analyze_batch([dev], sigs, lens)
+
         def local():
             return analyze_batch(sigs, lens, device=dev)
 
         def exchange():
             return D.process_allgather(np.array([GLOO_SONGS, sigs.shape[1]], np.int64))
 
-        got, want = distributed(), local()  # warm rounds
+        got, plain, want = distributed(), sharded(), local()  # warm rounds
         exchange()
+        entries = (("distributed", distributed), ("sharded", sharded), ("local", local),
+                   ("exchange", exchange))
         times = {}
-        for name, fn in (("distributed", distributed), ("local", local), ("exchange", exchange)):
+        for name, fn in entries:
             times[name] = []
-            for _ in range(rounds):
+            for _ in range(ROUNDS):
                 D.barrier()
                 t0 = time.perf_counter()
                 fn()
@@ -261,19 +275,18 @@ def gloo_worker(rank: int, port: int, device: str, small: bool, rounds: int, see
                     torch.cuda.synchronize(dev)
                 times[name].append(time.perf_counter() - t0)
                 D.barrier()
-        mine = np.array([statistics.median(times["distributed"]), statistics.median(times["local"]),
-                         statistics.median(times["exchange"]), float(np.array_equal(got, want))])
+        same = np.array_equal(got, want) and np.array_equal(plain, want)
+        mine = np.array([statistics.median(times[name]) for name, _ in entries] + [float(same)])
         every = D.process_allgather(mine)
     finally:
         D.shutdown()
     if rank == 0:
         print("SCALING_GLOO " + json.dumps({
-            "processes": 2, "songs_a_process": GLOO_SONGS, "song_samples": n, "rounds": rounds,
-            "distributed_ms": [float(r[0] * 1e3) for r in every],
-            "local_ms": [float(r[1] * 1e3) for r in every],
-            "overhead_ms": [float((r[0] - r[1]) * 1e3) for r in every],
-            "exchange_ms": [float(r[2] * 1e3) for r in every],
-            "bit_for_bit": bool(every[:, 3].all()),
+            "processes": 2, "songs_a_process": GLOO_SONGS, "song_samples": n, "rounds": ROUNDS,
+            **{f"{name}_ms": [float(r[i] * 1e3) for r in every]
+               for i, (name, _) in enumerate(entries)},
+            "overhead_ms": [float((r[0] - r[2]) * 1e3) for r in every],
+            "bit_for_bit": bool(every[:, -1].all()),
         }), flush=True)
 
 
@@ -283,7 +296,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def gloo_overhead(device: str, small: bool, rounds: int = 5, seed: int = 0) -> dict:
+def gloo_overhead(device: str, small: bool) -> dict:
     """Start the two workers (a card: both on `cuda:0`, or the card of
     `cuda:K`), wait for both at most `GLOO_TIMEOUT_S` seconds, and return
     rank 0's report; raises if a worker fails."""
@@ -291,7 +304,7 @@ def gloo_overhead(device: str, small: bool, rounds: int = 5, seed: int = 0) -> d
         device = "cuda:0"
     port = _free_port()
     cmd = [sys.executable, "-m", "bliss_tpu_torch.benches.scaling_bench", "--device", device,
-           "--port", str(port), "--rounds", str(rounds), "--seed", str(seed)]
+           "--port", str(port)]
     if small:
         cmd.append("--small")
     procs = [subprocess.Popen(cmd + ["--worker", str(rank)], cwd=REPO, stdout=subprocess.PIPE,
@@ -319,22 +332,20 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--entries", type=int, default=8)
     ap.add_argument("--small", action="store_true", help="the CPU sizes on any device")
-    ap.add_argument("--repeat", type=int, default=3)
-    ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--worker", type=int, metavar="RANK", help="run as one gloo worker")
     ap.add_argument("--port", type=int, help="the gloo group's port (with --worker)")
     args = ap.parse_args(argv)
     if args.worker is not None:
-        gloo_worker(args.worker, args.port, args.device, args.small, args.rounds, args.seed)
+        gloo_worker(args.worker, args.port, args.device, args.small)
         return 0
     sizes = sizes_for(args.device, args.small)
     entries = sorted({1, 2, args.entries})
-    rows = run_lists(args.device, entries, sizes, args.repeat, args.seed)
-    gloo = gloo_overhead(args.device, args.small, args.rounds, args.seed)
-    print(f"gloo: distributed {gloo['distributed_ms']} ms, local {gloo['local_ms']} ms a round, "
-          f"the exchange alone {gloo['exchange_ms']} ms, bit for bit {gloo['bit_for_bit']}",
-          flush=True)
+    rows = run_lists(args.device, entries, sizes, REPEAT, SEED)
+    gloo = gloo_overhead(args.device, args.small)
+    print(f"gloo: distributed {gloo['distributed_ms']} ms, sharded on pre-padded rows "
+          f"{gloo['sharded_ms']} ms, local {gloo['local_ms']} ms a round, distributed above "
+          f"local {gloo['overhead_ms']} ms, the exchange alone {gloo['exchange_ms']} ms, "
+          f"bit for bit {gloo['bit_for_bit']}", flush=True)
     held = all(r["bit_for_bit"] for r in rows) and gloo["bit_for_bit"]
     last = rows[-1]
     emit({

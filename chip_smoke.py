@@ -2413,15 +2413,15 @@ def multidevice_top_k(seed: int, card: str) -> None:
             fail(f"sharded_top_k over {len(mesh)} entries: other rows than the CPU's or {rel:.3g} > 1e-5")
 
 
-def scaling_phase(card: str) -> None:
+def scaling_phase(seed: int, card: str) -> None:
     """The scaling bench's lists (`bliss_tpu_torch/benches/scaling_bench.py`,
     its card sizes: 8 x 5-min songs, 100,000 library rows and 7.5 minutes of
-    one song an entry) over 1, 2 and 4 entries of cuda:0, one warm call a
-    path: every list's features, top-k, chroma and long-song vector bit for
-    bit against one entry's, finite."""
+    one song an entry, made from `seed`) over 1, 2 and 4 entries of cuda:0,
+    one warm call a path: every list's features, top-k, chroma and
+    long-song vector bit for bit against one entry's, finite."""
     from bliss_tpu_torch.benches import scaling_bench as SB
 
-    rows = SB.run_lists("cuda:0", (1, 2, 4), SB.CARD_SIZES, repeat=1,
+    rows = SB.run_lists("cuda:0", (1, 2, 4), SB.CARD_SIZES, repeat=1, seed=seed,
                         log=lambda line, **_: print(f"scaling: {line} [{card}]", flush=True))
     bad = [r["entries"] for r in rows if not (r["bit_for_bit"] and r["finite"])]
     if bad:
@@ -3132,7 +3132,7 @@ def main() -> None:
     del cluster_batch
     lap("multi-device")
     torch.cuda.empty_cache()
-    scaling_phase(card)
+    scaling_phase(args.seed, card)
     lap("scaling")
 
     # ---- the recycled ingest, the command-line examples, the V1 audit ------

@@ -12,7 +12,8 @@ CPU.
   reduction order across shards), tempo within 1e-6 of the JAX driver's
   and equal to the port's bucketed tempo.
 - `benches/scaling_bench.py` at its CPU sizes: its JSON keys, every list
-  bit for bit against one entry, and the two-process gloo rounds.
+  bit for bit against one entry, and the two-process gloo rounds (three
+  entries on the same rows, bit for bit).
 
 JAX is imported only inside the JAX comparison."""
 
@@ -148,12 +149,12 @@ def test_scaling_lists_hold_bit_for_bit():
 
 
 def test_scaling_bench_json_line(monkeypatch, capsys):
-    """`main` at the CPU sizes over 1, 2 and 4 entries, the gloo rounds cut
-    to 2 (each worker on one intra-op thread): one JSON line last, every
+    """`main` at the CPU sizes over 1, 2 and 4 entries, one warm call a path
+    (each gloo worker on one intra-op thread): one JSON line last, every
     key, bit for bit."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    rc = scaling_bench.main(["--device", "cpu", "--small", "--entries", "4", "--repeat", "1",
-                             "--rounds", "2"])
+    monkeypatch.setattr(scaling_bench, "REPEAT", 1)
+    rc = scaling_bench.main(["--device", "cpu", "--small", "--entries", "4"])
     lines = capsys.readouterr().out.splitlines()
     out = json.loads(lines[-1])
     assert rc == 0
@@ -168,7 +169,11 @@ def test_scaling_bench_json_line(monkeypatch, capsys):
                     "weak_scaling_efficiency_analyze", "per_entry_overhead", "held"):
             assert key in r, key
     gloo = out["gloo"]
-    assert gloo["processes"] == 2 and gloo["rounds"] == 2 and gloo["bit_for_bit"]
-    for key in ("distributed_ms", "local_ms", "overhead_ms", "exchange_ms"):
+    assert gloo["processes"] == 2 and gloo["rounds"] == scaling_bench.ROUNDS
+    assert gloo["bit_for_bit"]
+    for key in ("distributed_ms", "sharded_ms", "local_ms", "overhead_ms", "exchange_ms"):
         assert len(gloo[key]) == 2, key
-    assert all(ms > 0 for ms in gloo["distributed_ms"] + gloo["local_ms"] + gloo["exchange_ms"])
+    assert all(ms > 0 for key in ("distributed_ms", "sharded_ms", "local_ms", "exchange_ms")
+               for ms in gloo[key])
+    for d, l, o in zip(gloo["distributed_ms"], gloo["local_ms"], gloo["overhead_ms"]):
+        assert o == pytest.approx(d - l)
