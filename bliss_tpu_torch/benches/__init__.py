@@ -1,8 +1,8 @@
 """The port's benches. The end-to-end ones print one JSON line each, with
 the card's name and power limit (`card`, null off a card):
 
-- `bench`: files to features, songs/s with decoding (WAV mix or the
-  repo's codec mix), `python -m bliss_tpu_torch.benches.bench`;
+- `bench`: files to features, songs/s with decoding (the encoded mix or
+  the repo's codec mix), `python -m bliss_tpu_torch.benches.bench`;
 - `playlist_bench`: the queries of a 100k-song library;
 - `drift`: the card's f32 vectors against the CPU f64 path over the drift
   corpus, V2 and V1;
@@ -12,7 +12,8 @@ the card's name and power limit (`card`, null off a card):
 - `scaling_bench`: weak scaling of the device-list paths over 1, 2 and N
   entries, bit for bit against one entry, and a gloo group's cost a round.
 
-`fixtures` writes the headline's full-length WAV mix. The other files
+`fixtures` encodes the headline's full-length mix. The benches decode
+with `FFmpegDecoder`, the native libav decoder, as the JAX ones do. The other files
 here compare kernels or routes beside another checkout.
 """
 
@@ -44,18 +45,28 @@ def emit(result: dict) -> None:
     sys.stdout.flush()
 
 
-def decode_once(paths, known=None):
-    """Decode each of `paths` once with the default decoder, timed (a path
-    in `known`, a dict of decoded songs by path, is taken from there and
-    not decoded). Returns
-    a decoder class that hands out those decoded songs again without
-    decoding (a path that failed fails again the same way; `Decoded.kept`
-    holds them by path), and the seconds each decode took, by path."""
+def native_decoder():
+    """`FFmpegDecoder`, the benches' decoder as it is the JAX benches',
+    loaded first: where the native decoder cannot be built, a bench stops
+    here with the `DecodingError` that says why, and counts no song as
+    failed for it."""
+    from ..io.decoder import FFmpegDecoder, _load_lib
+
+    _load_lib()
+    return FFmpegDecoder
+
+
+def decode_once(paths, known=None, decoder=None):
+    """Decode each of `paths` once with `decoder` (default: the native
+    decoder), timed (a path in `known`, a dict of decoded songs by path, is
+    taken from there and not decoded). Returns a decoder class that hands
+    out those decoded songs again without decoding (a path that failed
+    fails again the same way; `Decoded.kept` holds them by path), and the
+    seconds each decode took, by path."""
     import dataclasses
     import time
 
-    from ..io.fallback import FallbackDecoder
-
+    base = decoder or native_decoder()
     kept, seconds = {}, {}
     for path in dict.fromkeys(str(p) for p in paths):
         if known and path in known:
@@ -63,17 +74,17 @@ def decode_once(paths, known=None):
             continue
         t0 = time.perf_counter()
         try:
-            kept[path] = FallbackDecoder.decode(path)
+            kept[path] = base.decode(path)
         except Exception as e:  # noqa: BLE001 - kept and raised again on use
             kept[path] = e
         seconds[path] = time.perf_counter() - t0
 
-    class Decoded(FallbackDecoder):
+    class Decoded(base):
         @classmethod
         def decode(cls, path):
             song = kept.get(str(path))
             if song is None:
-                return FallbackDecoder.decode(path)
+                return base.decode(path)
             if isinstance(song, Exception):
                 raise song
             return dataclasses.replace(song)

@@ -1,26 +1,28 @@
 """Files to features: decode + analyze songs/s through the batch driver
 (counterpart of the repo's bench.py).
 
-    python -m bliss_tpu_torch.benches.bench [--device cuda] [--mix wav|repo]
+    python -m bliss_tpu_torch.benches.bench [--device cuda] [--mix encoded|repo]
         [--songs 24] [--passes N] [--fixtures DIR] [--seconds S]
 
-`--mix wav` (default): `--songs` full-length songs cycling over the six
-WAV fixtures of `fixtures.py` (44.1 kHz stereo, mean 215.8 s), written
-once under tmp/; `--seconds S` makes each fixture S seconds long instead
-(a quick run). `--mix repo`: the repo's own codec mix, the 55 paths of the
+`--mix encoded` (default): `--songs` full-length songs cycling over the
+six fixtures of `fixtures.py` (the JAX repo's mix: FLAC, MP3 at 192 and
+256 kb/s and Ogg Vorbis of 44.1 kHz stereo, mean 215.8 s), encoded once
+under tmp/; `--seconds S` makes each fixture S seconds long instead (a
+quick run). `--mix repo`: the repo's own codec mix, the 55 paths of the
 drift corpus (`drift.py:CORPUS`: FLAC, MP3, Vorbis, AAC, WAV, the chroma
 synthetics, a 21-minute Vorbis medley and a CUE album), each once.
 
-One analysis of a synthetic 30-s song warms up (kernel builds, the first
-launches) and is not counted. Then `--passes` timed passes of
-`io.batch.analyze_paths_batched` with decoding (default 3 for the WAV mix,
-1 for the repo mix, whose pure-Python decoders take minutes a pass); the
-first keeps a copy of each decoded song, and one more pass analyzes the
-kept songs without decoding: `decode_share` is the part of the median
-pass that decoding adds, and `decode_s_summed` the seconds of a pass's
-decodes summed over the driver's threads. Prints one JSON line: songs/s
-and audio-seconds/s, median and best, the decode share, the decoded
-sample count, and the card's name and power limit.
+Songs are decoded by `FFmpegDecoder`, the native libav decoder, as the
+JAX bench decodes them. One analysis of a synthetic 30-s song warms up
+(kernel builds, the first launches) and is not counted. Then `--passes`
+timed passes of `io.batch.analyze_paths_batched` with decoding (default 3
+for the encoded mix, 1 for the repo mix); the first keeps a copy of each
+decoded song, and one more pass analyzes the kept songs without decoding:
+`decode_share` is the part of the median pass that decoding adds, and
+`decode_s_summed` the seconds of a pass's decodes summed over the
+driver's threads. Prints one JSON line: songs/s and audio-seconds/s,
+median and best, the decode share, the decoded sample count, and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import argparse
 import statistics
 import time
 
-from . import card, decode_once, emit
+from . import card, decode_once, emit, native_decoder
 
 def repo_mix() -> list:
     from .drift import CORPUS
@@ -48,20 +50,20 @@ def timed_pass(decoder, paths, device):
 
 
 def recording_decoder():
-    """The default decoder, keeping each song it decodes by path and the
+    """The native decoder, keeping each song it decodes by path and the
     seconds of every decode (in the driver's threads, so they overlap)."""
     import dataclasses
 
-    from ..io.fallback import FallbackDecoder
+    native = native_decoder()
 
-    class Recording(FallbackDecoder):
+    class Recording(native):
         kept: dict = {}
         seconds: list = []
 
         @classmethod
         def decode(cls, path):
             t0 = time.perf_counter()
-            song = FallbackDecoder.decode(path)
+            song = native.decode(path)
             cls.seconds.append(time.perf_counter() - t0)
             cls.kept[str(path)] = dataclasses.replace(song)
             return song
@@ -81,7 +83,7 @@ def warm_up(device) -> None:
     analyze_batch(x, [n], device=device)
 
 
-def run(device="cuda", mix="wav", songs=24, passes=None, fixtures=None, seconds=None) -> dict:
+def run(device="cuda", mix="encoded", songs=24, passes=None, fixtures=None, seconds=None) -> dict:
     import torch
 
     from ..models.analyzer import resolve_device
@@ -89,8 +91,8 @@ def run(device="cuda", mix="wav", songs=24, passes=None, fixtures=None, seconds=
     from .fixtures import MIX, ensure_bench_fixtures
 
     device = resolve_device(device)
-    if mix == "wav":
-        table = MIX if seconds is None else [(f"{seconds:g}s_{n}", seconds) for n, _ in MIX]
+    if mix == "encoded":
+        table = MIX if seconds is None else [(f"{seconds:g}s_{n}", c, seconds) for n, c, _ in MIX]
         files = ensure_bench_fixtures(fixtures, table)
         paths = [files[i % len(files)] for i in range(songs)]
         passes = passes or 3
@@ -136,12 +138,12 @@ def run(device="cuda", mix="wav", songs=24, passes=None, fixtures=None, seconds=
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m bliss_tpu_torch.benches.bench")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mix", choices=("wav", "repo"), default="wav")
-    ap.add_argument("--songs", type=int, default=24, help="songs a pass (WAV mix)")
+    ap.add_argument("--mix", choices=("encoded", "repo"), default="encoded")
+    ap.add_argument("--songs", type=int, default=24, help="songs a pass (encoded mix)")
     ap.add_argument("--passes", type=int, default=None)
-    ap.add_argument("--fixtures", default=None, help="folder of the WAV fixtures")
+    ap.add_argument("--fixtures", default=None, help="folder of the encoded fixtures")
     ap.add_argument("--seconds", type=float, default=None,
-                    help="each WAV fixture this long (a quick run)")
+                    help="each fixture this long (a quick run)")
     args = ap.parse_args(argv)
     emit(run(args.device, args.mix, args.songs, args.passes, args.fixtures, args.seconds))
 

@@ -5,12 +5,13 @@ benches/tpu_drift.py).
     python -m bliss_tpu_torch.benches.drift [--device cuda] [--dtype float32]
         [--paths FILE ...]
 
-Every file is decoded once; the same decoded samples go through
-`io.batch.analyze_paths_batched` on `--device` at `--dtype` and on the CPU
-at f64, in this one process. V2 runs over `CORPUS` (every decodable
-fixture: the chroma dyads and triads, the boundary tones and silences,
-the resampled MP3/AAC/Vorbis set, the 21-minute medley and the CUE album),
-V1 over `V1_SUBSET`; `--paths` puts those files in place of both sets.
+Every file is decoded once, by the native decoder; the same decoded
+samples go through `io.batch.analyze_paths_batched` on `--device` at
+`--dtype` and on the CPU at f64, in this one process. V2 runs over
+`CORPUS` (every decodable fixture: the chroma dyads and triads, the
+boundary tones and silences, the resampled MP3/AAC/Vorbis set, the
+21-minute medley and the CUE album), V1 over `V1_SUBSET`; `--paths`
+puts those files in place of both sets.
 
 The contract: at most 1e-4 per feature on real content; on the pure-tone
 and dyad synthetics (`DEGENERATE`), whose true spectra sit below the f32
@@ -116,16 +117,17 @@ def compare(got: dict, ref: dict) -> tuple:
 
 
 def audit(v2_paths=CORPUS, v1_paths=V1_SUBSET, device="cuda", dtype=None, log=print,
-          decoded=None) -> dict:
+          decoded=None, decoder=None) -> dict:
     """Both versions' audit; the result dict of the JSON line. `decoded`
-    (decoded songs by path) spares decoding those files again."""
+    (decoded songs by path) spares decoding those files again; `decoder`
+    decodes the others (default: the native decoder)."""
     import torch
 
     from ..models.analyzer import _resolve_dtype, resolve_device
 
     device = resolve_device(device)
     dtype = _resolve_dtype(device, getattr(torch, dtype) if isinstance(dtype, str) else dtype)
-    decoder, decode_s = decode_once(list(v2_paths) + list(v1_paths), decoded)
+    decoder, decode_s = decode_once(list(v2_paths) + list(v1_paths), decoded, decoder)
     result = {"metric": "drift_max_real", "device": str(device), "dtype": str(dtype).split(".")[-1],
               "reference": "cpu float64", "card": card(device),
               "decode_s": sum(decode_s.values())}

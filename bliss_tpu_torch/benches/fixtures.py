@@ -1,11 +1,13 @@
 """Full-length bench fixtures: the headline's synthesized library mix,
-written as WAV (counterpart of benches/fixtures.py).
+encoded through the port's native libav encoder (counterpart of
+benches/fixtures.py).
 
-The same six songs as the JAX repo's mix (names, durations 170-280 s,
-mean 215.8 s, seeds 1000 + i, chords + bass + percussion at 44.1 kHz
-stereo), written as 16-bit PCM WAV, since no encoder is at hand: the
-decoders then read WAV and resample 44.1 kHz stereo to 22.05 kHz mono.
-Written once into a versioned folder and reused.
+The same six songs as the JAX repo's mix (names, codecs, bit rates,
+durations 170-280 s, mean 215.8 s, seeds 1000 + i, chords + bass +
+percussion at 44.1 kHz stereo), encoded to FLAC, MP3 and Ogg Vorbis by
+`io/native/bliss_encode.cpp` (built on first use by `io/_native.py`), so
+the decoders work as they do on a real library. Written once into a
+versioned folder under the repository's ignored tmp/ and reused.
 
     python -m bliss_tpu_torch.benches.fixtures [DIR]
 """
@@ -13,21 +15,21 @@ Written once into a versioned folder and reused.
 from __future__ import annotations
 
 import pathlib
-import wave
+import subprocess
 
 import numpy as np
 
 #: Bump when the synthesis or the mix changes, so stale caches regenerate.
-VERSION = "v1"
+VERSION = "v2"
 
-#: (name, duration_s): benches/fixtures.py's MIX, with the extension .wav.
+#: (name, (codec, bit rate), duration_s): benches/fixtures.py's MIX.
 MIX = [
-    ("song_170s.wav", 170),
-    ("song_250s.wav", 250),
-    ("song_180s.wav", 180),
-    ("song_280s.wav", 280),
-    ("song_175s.wav", 175),
-    ("song_240s.wav", 240),
+    ("song_170s.flac", ("flac", ""), 170),
+    ("song_250s.mp3", ("libmp3lame", "192000"), 250),
+    ("song_180s.ogg", ("libvorbis", ""), 180),
+    ("song_280s.mp3", ("libmp3lame", "256000"), 280),
+    ("song_175s.flac", ("flac", ""), 175),
+    ("song_240s.ogg", ("libvorbis", ""), 240),
 ]
 
 RATE = 44100
@@ -88,36 +90,43 @@ def music_like(duration_s: float, seed: int, rate: int = RATE) -> np.ndarray:
     return st.astype(np.float32)
 
 
-def write_wav(path: pathlib.Path, pcm: np.ndarray, rate: int) -> None:
-    """`pcm` ([T] or [T, C] floats in [-1, 1]) as 16-bit PCM WAV, written
-    to a temporary name first so a reader never sees half a file."""
-    pcm = pcm.reshape(pcm.shape[0], -1)
-    ints = np.clip(np.round(pcm * 32767.0), -32768, 32767).astype("<i2")
-    tmp = path.with_name(path.name + ".part")
-    with wave.open(str(tmp), "wb") as w:
-        w.setnchannels(pcm.shape[1])
-        w.setsampwidth(2)
-        w.setframerate(rate)
-        w.writeframes(ints.tobytes())
+def encode(path: pathlib.Path, pcm: np.ndarray, rate: int, codec: tuple) -> None:
+    """`pcm` ([T, C] f32) encoded by `bliss_encode` with `codec` (name,
+    bit rate or ""), written to a temporary name first so a reader never
+    sees half a file."""
+    from ..io._native import encoder
+
+    name, bit_rate = codec
+    raw = path.with_name(path.name + ".f32le")
+    tmp = path.with_name(f"{path.stem}.part{path.suffix}")  # the format is the suffix's
+    pcm = np.ascontiguousarray(pcm, dtype="<f4")
+    pcm.tofile(raw)
+    try:
+        cmd = [str(encoder()), str(raw), str(tmp), str(rate), str(pcm.shape[1]), name]
+        subprocess.run(cmd + ([bit_rate] if bit_rate else []), check=True,
+                       capture_output=True)
+    finally:
+        raw.unlink(missing_ok=True)
     tmp.replace(path)
 
 
 def ensure_bench_fixtures(cache_dir=None, mix=MIX) -> list[pathlib.Path]:
     """Write (once) and return the full-length fixture paths; `mix` may be
-    a shorter list of (name, seconds) for a quick run."""
+    a shorter list of (name, codec, seconds) for a quick run."""
     from concurrent.futures import ThreadPoolExecutor
 
     cache = pathlib.Path(cache_dir or DEFAULT_DIR)
     cache.mkdir(parents=True, exist_ok=True)
-    paths = [cache / name for name, _ in mix]
+    paths = [cache / name for name, _, _ in mix]
+    todo = [i for i, p in enumerate(paths) if not (p.exists() and p.stat().st_size > 0)]
 
     def make(i):
-        if not (paths[i].exists() and paths[i].stat().st_size > 0):
-            write_wav(paths[i], music_like(mix[i][1], seed=1000 + i), RATE)
+        _, codec, seconds = mix[i]
+        encode(paths[i], music_like(seconds, seed=1000 + i), RATE, codec)
 
-    # numpy's large element-wise ops release the GIL: threads overlap them
-    with ThreadPoolExecutor(max_workers=len(mix)) as pool:
-        list(pool.map(make, range(len(mix))))
+    # numpy's large element-wise ops and the encoder processes run at once
+    with ThreadPoolExecutor(max_workers=max(len(todo), 1)) as pool:
+        list(pool.map(make, todo))
     return paths
 
 

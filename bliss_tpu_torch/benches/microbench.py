@@ -19,7 +19,7 @@ import pathlib
 import statistics
 import time
 
-from . import card, emit
+from . import card, emit, native_decoder
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 SONG = REPO / "tests" / "data" / "s16_mono_22_5kHz.flac"
@@ -28,7 +28,6 @@ SONG = REPO / "tests" / "data" / "s16_mono_22_5kHz.flac"
 def run(device="cuda", repeat=5) -> dict:
     import torch
 
-    from ..io.fallback import FallbackDecoder
     from ..models import chroma as CH
     from ..models import loudness as LD
     from ..models import tempo as TP
@@ -39,8 +38,9 @@ def run(device="cuda", repeat=5) -> dict:
     from ..tables import default_tables
 
     device = resolve_device(device)
+    native = native_decoder()
     dtype = _resolve_dtype(device, None)
-    decoded = FallbackDecoder.decode(SONG)
+    decoded = native.decode(SONG)
     n = len(decoded.sample_array)
     tpad = bucket_length(n)
     x = torch.zeros((1, tpad), dtype=torch.float32, device=device)
@@ -86,7 +86,7 @@ def run(device="cuda", repeat=5) -> dict:
             spec, tuning, CH.WINDOW_SIZE, tab),
         "chroma: interval features": lambda: CH.chroma_interval_features(
             chroma, frame_mask, tab["interval_indices"]),
-        "decode (host)": lambda: FallbackDecoder.decode(SONG),
+        "decode (host)": lambda: native.decode(SONG),
         "full analysis (1 song)": lambda: analyze_samples(
             decoded.sample_array, n, 2, device=device).cpu(),
     }

@@ -46,7 +46,7 @@ import wave
 
 import numpy as np
 
-from . import card, emit
+from . import card, emit, native_decoder
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 SAMPLE_RATE = 22050
@@ -116,14 +116,14 @@ def phase_gen(args) -> None:
 
 
 def open_library(args, fresh: bool):
-    from ..io.fallback import FallbackDecoder
     from ..library import BaseConfig, Library
 
+    native = native_decoder()
     db, cfg = args.dir / "soak.db", args.dir / "soak_config.json"
     if fresh:
         for f in (db, cfg):
             f.unlink(missing_ok=True)
-    return Library(BaseConfig(config_path=cfg, database_path=db), FallbackDecoder,
+    return Library(BaseConfig(config_path=cfg, database_path=db), native,
                    device=args.device)
 
 

@@ -1,17 +1,26 @@
-"""The decoder protocol and the decoded-song record (counterpart of
-bliss_tpu/io/decoder.py, without its native libav decoder).
+"""Audio decoding to the canonical bliss PCM format (f32/mono/22050 Hz)
+(counterpart of bliss_tpu/io/decoder.py).
 
-Decoding yields canonical PCM (f32/mono/22050 Hz) on the host; analysis
-runs on `device`, the card unless the caller asks for the CPU. The port's
-decoders are the FFI-free stack of `io/fallback.py`, and
-`DefaultDecoder` is its `FallbackDecoder`.
+`DefaultDecoder` is `FFmpegDecoder`, the native C++ library over
+libavformat/libavcodec/libswresample of `native/bliss_decode.cpp`
+(bit-identical to `ffmpeg -ar 22050 -ac 1 -c:a pcm_f32le`, held against
+the reference's adler32 golden hashes, bliss-rs
+src/song/decoder/ffmpeg.rs:379-527), built on first use by `_native.py`
+with g++ and the system's libav into `bliss_tpu_torch/build/`; where it
+cannot be built, the first decode raises `DecodingError`. The FFI-free
+stack of `io/fallback.py` is `FallbackDecoder`, which a caller passes
+explicitly. Decoding runs on the host (the ctypes call releases the GIL,
+so the batch driver's decode threads overlap); analysis runs on `device`,
+the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import os
 import pathlib
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Iterable, Iterator, Optional, Tuple
@@ -19,9 +28,52 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 
 from ..errors import BlissError, DecodingError
-from ..features import SAMPLE_RATE  # noqa: F401 (bliss_tpu.io.decoder's name)
+from ..features import SAMPLE_RATE
+from . import _native
 
 logger = logging.getLogger("bliss_tpu_torch")
+
+_lib_lock = threading.Lock()
+_lib = None
+
+
+class _DecodeResult(ctypes.Structure):
+    _fields_ = [
+        ("samples", ctypes.POINTER(ctypes.c_float)),
+        ("n_samples", ctypes.c_int64),
+        ("title", ctypes.c_char_p),
+        ("artist", ctypes.c_char_p),
+        ("album", ctypes.c_char_p),
+        ("album_artist", ctypes.c_char_p),
+        ("genre", ctypes.c_char_p),
+        ("track", ctypes.c_char_p),
+        ("disc", ctypes.c_char_p),
+        ("error", ctypes.c_char_p),
+    ]
+
+
+def _load_lib():
+    """The native decoder, built on first use and loaded by its full path."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        path = _native.decoder_library()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise DecodingError(f"cannot load the native decoder {path}: {e}") from e
+        lib.bliss_decode.restype = ctypes.POINTER(_DecodeResult)
+        lib.bliss_decode.argtypes = [ctypes.c_char_p]
+        lib.bliss_decode_free.argtypes = [ctypes.POINTER(_DecodeResult)]
+        _lib = lib
+        return lib
+
+
+def _opt_str(b: Optional[bytes]) -> Optional[str]:
+    if not b:
+        return None
+    return b.decode("utf-8", errors="replace")
 
 
 def _parse_track_number(raw: Optional[str]) -> Optional[int]:
@@ -153,13 +205,40 @@ class Decoder:
         return generate()
 
 
-def __getattr__(name):
-    """`DefaultDecoder`, the port's default decoder: the FFI-free stack
-    (the reference's Symphonia-style alternative,
-    src/song/decoder.rs:67-74). Resolved on first use, since
-    `io/fallback.py` imports this module."""
-    if name == "DefaultDecoder":
-        from .fallback import FallbackDecoder
+class FFmpegDecoder(Decoder):
+    """Native libav*-backed decoder (the default decoder)."""
 
-        return FallbackDecoder
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    @classmethod
+    def decode(cls, path) -> PreAnalyzedSong:
+        path = pathlib.Path(path)
+        lib = _load_lib()
+        res = lib.bliss_decode(str(path).encode())
+        try:
+            c = res.contents
+            if c.error:
+                raise DecodingError(c.error.decode("utf-8", errors="replace"))
+            n = int(c.n_samples)
+            if n > 0:
+                # a copy: the library's buffer is freed below
+                samples = np.ctypeslib.as_array(c.samples, shape=(n,)).copy()
+            else:
+                samples = np.zeros(0, dtype=np.float32)
+            return PreAnalyzedSong(
+                path=path,
+                title=_opt_str(c.title),
+                artist=_opt_str(c.artist),
+                album=_opt_str(c.album),
+                album_artist=_opt_str(c.album_artist),
+                genre=_opt_str(c.genre),
+                track_number=_parse_track_number(_opt_str(c.track)),
+                disc_number=_parse_track_number(_opt_str(c.disc)),
+                duration=round(n / SAMPLE_RATE, 9),
+                sample_array=samples,
+            )
+        finally:
+            lib.bliss_decode_free(res)
+
+
+#: The default decoder (reference src/song/decoder.rs:67-74: FFmpeg when
+#: the feature is on). The FFI-free stack is `io.fallback.FallbackDecoder`.
+DefaultDecoder = FFmpegDecoder

@@ -982,6 +982,15 @@ class Library:
         decoder = f"{self.decoder_cls.__module__}:{self.decoder_cls.__qualname__}"
         if self.decoder_cls.__module__ == "__main__" or "<locals>" in decoder:
             raise ValueError(f"decoder {decoder} cannot be imported by a worker process")
+        from .errors import DecodingError
+        from .io import _native
+        from .io.decoder import FFmpegDecoder
+
+        if isinstance(self.decoder_cls, type) and issubclass(self.decoder_cls, FFmpegDecoder):
+            try:  # built here, so that the workers only load it
+                _native.decoder_library()
+            except DecodingError:
+                pass  # each worker's decodes fail with it, song by song
         timeout = child_timeout_s or max(900.0, 10.0 * segment_songs)
         segments = [
             to_analyze[i : i + segment_songs]

@@ -3,12 +3,23 @@
 
     python3 chip_smoke.py [--seed N] [--songs 8] [--seconds 300] [--profile]
                           [--corpus default|full]
-    python3 chip_smoke.py --distributed-worker RANK --port P --workdir DIR
+    python3 chip_smoke.py --distributed-worker RANK --port P --workdir DIR [--decoder C]
         (one process of phase 12's cluster; the phase starts both)
 
-1. prints the card's name and power limit (nvidia-smi);
+1. prints the card's name and power limit (nvidia-smi), then the native
+   decoder's probe line: pkg-config's version of libavformat, libavcodec,
+   libavutil and libswresample, the path of g++, and whether the port's
+   native decoder and encoder (`bliss_tpu_torch/io/native/`) built into
+   `bliss_tpu_torch/build/`. Where they built, every phase that decodes
+   uses the default decoder, `FFmpegDecoder`; where not, each passes
+   `FallbackDecoder` explicitly and the examples phase does not run (the
+   line says so);
 2. builds every CUDA kernel of `bliss_tpu_torch/csrc` (one nvcc each, in
-   parallel) into `bliss_tpu_torch/build/`;
+   parallel) into `bliss_tpu_torch/build/`; then the native-decode phase:
+   the reference's golden adler32 hashes of seven fixtures and the tags of
+   s16_mono_22_5kHz.flac through `FFmpegDecoder` (a mismatch fails the run
+   under libavformat 59.27.100, and is printed with the largest PCM
+   distance to `FallbackDecoder` under another);
 3. makes a batch of synthetic songs from `--seed` (tones, chords, clicks
    and noise), 8 x 5 minutes by default, padded to `bucket_length`;
 4. holds each kernel against its plain PyTorch version on the card, at
@@ -67,8 +78,9 @@
 8. files: `io.batch.analyze_paths_batched` on the card over the drift
    fixtures (all but the 21-minute medley), piano.flac,
    s16_mono_22_5kHz.flac and testcue.cue (`--corpus full`: every fixture
-   of the drift corpus), with decoding (the batch driver's decode threads, then
-   one decode worker) and from the decoded songs, and holds each vector against the port's CPU f64 path on the
+   of the drift corpus), with decoding (the probe's decoder; the batch
+   driver's decode threads, then one decode worker) and from the decoded
+   songs, and holds each vector against the port's CPU f64 path on the
    same decoded samples: <= 1e-4 per feature on real content, <= 2e-2 and
    the same dominant chroma on the pure-tone and dyad synthetics; then
    the `timbral="flat"` route on the same decoded real-content songs and
@@ -1276,6 +1288,104 @@ def long_phase(rng, results, card, n_songs: int, seconds: float, record_json: bo
     return batch[0, :n].copy()
 
 
+# ---------------------------------------------------------------------------
+# the native decoder
+# ---------------------------------------------------------------------------
+
+#: The decoder of every phase that decodes, set by `native_probe` before any
+#: phase decodes: the default decoder, FFmpegDecoder, where the native
+#: decoder built; else FallbackDecoder, passed explicitly.
+DECODER = None
+
+#: The reference's golden adler32 hashes of the decoded PCM (bliss-rs
+#: src/song/decoder/ffmpeg.rs:379-527, tests/test_decoder.py).
+GOLDEN_HASHES = {
+    "s16_mono_22_5kHz.flac": 0x5E01930B,
+    "s32_mono_44_1_kHz.flac": 0xA0F8B8AF,
+    "s32_stereo_44_1_kHz.flac": 0xBBCBA1CF,
+    "s16_stereo_22_5kHz.flac": 0x1D7B2D6D,
+    "s32_stereo_44_1_kHz.mp3": 0x69CA6906,
+    "no_channel.wav": 0xD594429C,
+    "piano.wav": 0xDE831E82,
+}
+#: The tags of s16_mono_22_5kHz.flac (tests/test_decoder.py:test_tags).
+GOLDEN_TAGS = {
+    "artist": "David TMX", "album_artist": "David TMX - Album Artist",
+    "title": "Renaissance", "album": "Renaissance", "track_number": 2, "disc_number": 1,
+    "genre": "Pop",
+}
+#: The libavformat against which the CPU tests hold the golden hashes: under
+#: it a mismatch fails the run, under another it is reported.
+GOLDEN_LIBAVFORMAT = "59.27.100"
+
+
+def native_probe() -> dict:
+    """What the native decoder needs on this host (each libav library's
+    pkg-config version, the path of g++) and whether the decoder and the
+    encoder built; sets DECODER from it, and says which phases it changes."""
+    global DECODER
+    from bliss_tpu_torch.io import _native
+    from bliss_tpu_torch.io.decoder import DefaultDecoder
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+
+    t0 = time.perf_counter()
+    probe = _native.probe()
+    DECODER = DefaultDecoder if probe["ok"] else FallbackDecoder
+    libav = ", ".join(f"{k} {v or 'MISSING'}" for k, v in probe["libav"].items())
+    use = ("every phase that decodes uses the default decoder, FFmpegDecoder" if probe["ok"] else
+           "every phase that decodes passes FallbackDecoder explicitly; the native-decode phase "
+           "and the examples phase (its CLIs decode with DefaultDecoder, the native decoder) do "
+           "not run")
+    print(f"native decoder probe: pkg-config: {libav}; g++ {probe['g++']}; decoder "
+          f"{probe['decoder']}; encoder {probe['encoder']} ({time.perf_counter() - t0:.2f} s); "
+          f"{use}", flush=True)
+    return probe
+
+
+def native_decode_phase(probe: dict, card: str) -> None:
+    """The port's FFmpegDecoder on the host: the golden adler32 hashes of
+    seven fixtures and the tags of s16_mono_22_5kHz.flac, each decode
+    timed. Under GOLDEN_LIBAVFORMAT a mismatch fails the run; under another
+    libav each differing hash is printed beside its golden value with the
+    largest PCM distance to FallbackDecoder, and the run goes on."""
+    import zlib
+
+    from bliss_tpu_torch.io.decoder import FFmpegDecoder
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+
+    if DECODER is not FFmpegDecoder:
+        print("native decode: not run, the native decoder did not build (see the probe line)",
+              flush=True)
+        return
+    pinned = probe["libav"]["libavformat"] == GOLDEN_LIBAVFORMAT
+    rows, bad = [], []
+    for name, want in GOLDEN_HASHES.items():
+        t0 = time.perf_counter()
+        x = FFmpegDecoder.decode(DATA / name).sample_array
+        ms = (time.perf_counter() - t0) * 1e3
+        got = zlib.adler32(x.tobytes())
+        row = f"{name} {got:#010x} {'==' if got == want else '!='} {want:#010x} ({ms:.1f} ms)"
+        if got != want:
+            bad.append(name)
+            ref = FallbackDecoder.decode(DATA / name).sample_array
+            m = min(len(x), len(ref))
+            row += (f", largest PCM distance to FallbackDecoder {np.abs(x[:m] - ref[:m]).max():.3g}"
+                    f" ({len(x)} samples, FallbackDecoder {len(ref)})")
+        rows.append(row)
+    song = FFmpegDecoder.decode(DATA / "s16_mono_22_5kHz.flac")
+    tags = [f"{k} {getattr(song, k)!r}" for k, v in GOLDEN_TAGS.items() if getattr(song, k) != v]
+    print(f"native decode: golden adler32 of {len(rows)} fixtures under libavformat "
+          f"{probe['libav']['libavformat']} ("
+          f"{'the pinned one' if pinned else f'not the pinned {GOLDEN_LIBAVFORMAT}: reported'}): "
+          f"{len(rows) - len(bad)} equal; tags of "
+          f"s16_mono_22_5kHz.flac {'equal' if not tags else 'DIFFER: ' + ', '.join(tags)} "
+          f"[{card}]", flush=True)
+    for row in rows:
+        print(f"  {row}", flush=True)
+    if pinned and (bad or tags):
+        fail(f"native decode: {bad} hashes, tags {tags} differ from the reference's")
+
+
 def files_set(corpus: str = "default") -> list:
     """The files phase's paths: the drift fixtures but the 21-minute medley,
     piano.flac, s16_mono_22_5kHz.flac and testcue.cue; `full`, every
@@ -1301,7 +1411,6 @@ def files_phase(corpus: str, card: str) -> dict:
     Returns the card's results by path and the decoded songs by path."""
     from bliss_tpu_torch.io import batch as IB
     from bliss_tpu_torch.io.batch import analyze_paths_batched
-    from bliss_tpu_torch.io.fallback import FallbackDecoder
     from bliss_tpu_torch.ops import _build
     from bliss_tpu_torch.song import Song
 
@@ -1309,25 +1418,25 @@ def files_phase(corpus: str, card: str) -> dict:
     decoded: dict = {}
     decode_s: dict = {}
 
-    class Recording(FallbackDecoder):
+    class Recording(DECODER):
         """Decodes, and keeps a copy of each decoded song."""
 
         @classmethod
         def decode(cls, path):
             t0 = time.perf_counter()
-            song = FallbackDecoder.decode(path)
+            song = DECODER.decode(path)
             decode_s[str(path)] = time.perf_counter() - t0
             decoded[str(path)] = dataclasses.replace(song, sample_array=song.sample_array.copy())
             return song
 
-    class Decoded(FallbackDecoder):
+    class Decoded(DECODER):
         """Hands out the kept songs: the same samples without decoding."""
 
         @classmethod
         def decode(cls, path):
             song = decoded.get(str(path))
             if song is None:  # a file that failed to decode fails again
-                return FallbackDecoder.decode(path)
+                return DECODER.decode(path)
             return dataclasses.replace(song, sample_array=song.sample_array.copy())
 
     def run(decoder, device, workers=None, devices=None, longsong_samples=None):
@@ -1374,7 +1483,8 @@ def files_phase(corpus: str, card: str) -> dict:
     songs = sorted(k for k, r in gpu.items() if isinstance(r, Song))
     n_songs = len(songs)
     share = (with_s - without_s) / with_s
-    print(f"files ({corpus}): {len(paths)} paths -> {n_songs} songs; with decode {with_s:.2f} s = "
+    print(f"files ({corpus}, {DECODER.__name__}): {len(paths)} paths -> {n_songs} songs; with "
+          f"decode {with_s:.2f} s = "
           f"{n_songs / with_s:.3f} songs/s, from decoded songs {without_s:.2f} s = "
           f"{n_songs / without_s:.3f} songs/s; decode share {share:.3f} (decode time summed over "
           f"threads {threads_s:.1f} s); with one decode worker {one_worker_s:.2f} s = "
@@ -1462,7 +1572,6 @@ def flat_audit(decoded: dict, gpu: dict, cpu: dict) -> None:
     its drift from the CPU f64 path beside the default route's, per song
     the worst feature and the worst of the two flatness features (6, 7).
     Reported against the 1e-4 contract, not failed."""
-    from bliss_tpu_torch.io.fallback import FallbackDecoder
     from bliss_tpu_torch.models.analyzer import analyze_samples
     from bliss_tpu_torch.routes import Routes
     from bliss_tpu_torch.song import Song
@@ -1477,7 +1586,7 @@ def flat_audit(decoded: dict, gpu: dict, cpu: dict) -> None:
         c, g = cpu[key].analysis.as_arr1(), gpu[key].analysis.as_arr1()
         rows.append((np.abs(f - c).max(), np.abs(f - c)[6:8].max(), np.abs(g - c).max(),
                      np.abs(g - c)[6:8].max(), str(pathlib.Path(key).relative_to(DATA))))
-    x = FallbackDecoder.decode(DATA / "s16_mono_22_5kHz.mp3").sample_array
+    x = DECODER.decode(DATA / "s16_mono_22_5kHz.mp3").sample_array
     c = analyze_samples(x, x.shape[0], 2, device="cpu").cpu().numpy()
     f = analyze_samples(x, x.shape[0], 2, device="cuda", routes=flat).cpu().numpy()
     g = analyze_samples(x, x.shape[0], 2, device="cuda").cpu().numpy()
@@ -1799,7 +1908,6 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
     import tempfile
 
     from bliss_tpu_torch.io.batch import analyze_paths_batched
-    from bliss_tpu_torch.io.fallback import FallbackDecoder
     from bliss_tpu_torch.models import chroma as CH
     from bliss_tpu_torch.models.analyzer import analyze_batch, analyze_samples, bucket_length
     from bliss_tpu_torch.ops import _build
@@ -2013,12 +2121,12 @@ def longsong_phase(rng, record, results, song21, card: str, minutes: float = 60.
                 w.writeframes(np.clip(song21 * 32767, -32768, 32767).astype("<i2").tobytes())
             _build.reset_launches()
             t0 = time.perf_counter()
-            routed = dict(analyze_paths_batched(FallbackDecoder, [wav], devices=[dev, dev]))[wav]
+            routed = dict(analyze_paths_batched(DECODER, [wav], devices=[dev, dev]))[wav]
             routed_s = time.perf_counter() - t0
             r_launches, r_calls = dict(_build.LAUNCHES), list(calls)
             _build.reset_launches()
             t0 = time.perf_counter()
-            plain = dict(analyze_paths_batched(FallbackDecoder, [wav], devices=[dev]))[wav]
+            plain = dict(analyze_paths_batched(DECODER, [wav], devices=[dev]))[wav]
             plain_s = time.perf_counter() - t0
             p_launches, p_calls = dict(_build.LAUNCHES), calls[len(r_calls):]
     finally:
@@ -2281,7 +2389,8 @@ def library_phase(seed: int, card: str, files: dict) -> None:
         # the user's round trip: update_library on files, then a playlist
         trip = [DATA / "piano.flac", DATA / "s16_mono_22_5kHz.flac", DATA / "testcue.cue"]
         user = Library(BaseConfig(config_path=folder / "user" / "config.json",
-                                  database_path=folder / "user" / "songs.db"), device="cuda")
+                                  database_path=folder / "user" / "songs.db"), DECODER,
+                       device="cuda")
         _build.reset_launches()
         _, update_s = timed(lambda: user.update_library(trip))
         launches = dict(_build.LAUNCHES)
@@ -2457,7 +2566,8 @@ def cluster_phase(seed: int, batch, lengths, files: dict, card: str, timeout: fl
         procs = [
             subprocess.Popen(
                 [sys.executable, str(REPO / "chip_smoke.py"), "--distributed-worker", str(rank),
-                 "--port", str(port), "--workdir", str(work), "--seed", str(seed)],
+                 "--port", str(port), "--workdir", str(work), "--seed", str(seed),
+                 "--decoder", DECODER.__name__],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for rank in range(2)
@@ -2532,10 +2642,12 @@ def cluster_phase(seed: int, batch, lengths, files: dict, card: str, timeout: fl
         shutil.rmtree(work, ignore_errors=True)
 
 
-def distributed_worker(rank: int, port: int, workdir: str, seed: int) -> None:
-    """One process of `cluster_phase`'s group, on cuda:0."""
+def distributed_worker(rank: int, port: int, workdir: str, seed: int, decoder: str) -> None:
+    """One process of `cluster_phase`'s group, on cuda:0, decoding with the
+    parent's decoder (`decoder`, its class name)."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this worker needs a GPU")
+    from bliss_tpu_torch.io.decoder import FFmpegDecoder
     from bliss_tpu_torch.io.fallback import FallbackDecoder
     from bliss_tpu_torch.library import BaseConfig, Library
     from bliss_tpu_torch.ops import _build
@@ -2564,12 +2676,13 @@ def distributed_worker(rank: int, port: int, workdir: str, seed: int) -> None:
 
     config = BaseConfig(config_path=work / "lib" / "config.json",
                         database_path=work / "lib" / "songs.db")
+    decoder_cls = {c.__name__: c for c in (FFmpegDecoder, FallbackDecoder)}[decoder]
     if rank == 0:
-        lib = Library(config, FallbackDecoder, devices=mesh)
+        lib = Library(config, decoder_cls, devices=mesh)
         D.barrier()
     else:
         D.barrier()
-        lib = Library(config, FallbackDecoder, create=False, devices=mesh)
+        lib = Library(config, decoder_cls, create=False, devices=mesh)
     (report["stored"], report["failed"]), report["update_s"] = wall_s(
         lambda: D.update_library_distributed(lib, files_set(), mesh, rank, 2))
     report["launches"] = dict(_build.LAUNCHES)
@@ -2616,12 +2729,12 @@ def recycled_phase(files: dict, decoded: dict, card: str, segment_songs: int = 4
     """The files phase's default set through `Library.update_library_recycled`
     on the card in worker processes of `segment_songs` songs, the next one
     pre-spawned, against `update_library` in this process on the same
-    decoded songs, both with one decode thread (`number_cores = 1`: the
-    pure-Python decoders hold the GIL, and the files phase decodes the set
-    faster with one worker than with threads): every vector within
-    RECYCLED_ATOL (tempo equal), the same failed ledger, each worker's
-    kernel launches on cuda:0 (read from its debug report on standard
-    error), and a second call that starts no process. Prints each
+    decoded songs, both with DECODER (with FallbackDecoder on one decode
+    thread, `number_cores = 1`: the pure-Python decoders hold the GIL, and
+    decode the set faster with one worker than with threads): every vector
+    within RECYCLED_ATOL (tempo equal), the same failed ledger, each
+    worker's kernel launches on cuda:0 (read from its debug report on
+    standard error), and a second call that starts no process. Prints each
     segment's wall time, the start-up seconds that pre-spawning hid, and
     the peak resident memory of this process and of the workers."""
     import logging
@@ -2639,8 +2752,8 @@ def recycled_phase(files: dict, decoded: dict, card: str, segment_songs: int = 4
     paths = [str(p) for p in files_set()]
     failures = []
     try:
-        known, _ = decode_once(paths, decoded)
-        options = AnalysisOptions(number_cores=1)
+        known, _ = decode_once(paths, decoded, DECODER)
+        options = AnalysisOptions(number_cores=1 if DECODER is FallbackDecoder else 0)
         ref = Library(BaseConfig(config_path=work / "inproc" / "config.json",
                                  database_path=work / "inproc" / "songs.db",
                                  analysis_options=options), known, device="cuda")
@@ -2650,7 +2763,7 @@ def recycled_phase(files: dict, decoded: dict, card: str, segment_songs: int = 4
 
         lib = Library(BaseConfig(config_path=work / "rec" / "config.json",
                                  database_path=work / "rec" / "songs.db",
-                                 analysis_options=options), FallbackDecoder, device="cuda")
+                                 analysis_options=options), DECODER, device="cuda")
         log = logging.getLogger("bliss_tpu_torch")
         handler = logging.StreamHandler(sys.stderr)
         handler.setFormatter(logging.Formatter("%(levelname)s %(name)s: %(message)s"))
@@ -2749,6 +2862,12 @@ def examples_phase(files: dict, card: str) -> None:
     vector of s16_mono_22_5kHz.flac within 1e-6 of the files phase's."""
     import shutil
 
+    from bliss_tpu_torch.io.decoder import DefaultDecoder
+
+    if DECODER is not DefaultDecoder:
+        print("examples: not run, their CLIs decode with DefaultDecoder, the native decoder, "
+              "which did not build on this host (see the probe line)", flush=True)
+        return
     work = REPO / "tmp" / "smoke_examples"
     shutil.rmtree(work, ignore_errors=True)
     music = work / "music"
@@ -2824,7 +2943,7 @@ def v1_audit(decoded: dict, card: str) -> None:
     from bliss_tpu_torch.benches import drift
 
     t0 = time.perf_counter()
-    result = drift.audit([], drift.V1_SUBSET, "cuda", decoded=decoded,
+    result = drift.audit([], drift.V1_SUBSET, "cuda", decoded=decoded, decoder=DECODER,
                          log=lambda line: print(f"  {line}", flush=True))
     v1 = result["v1"]
     print(f"V1 audit: {v1['entries']} files of V1_SUBSET on the card at f32 against the CPU f64 "
@@ -2848,9 +2967,12 @@ def main() -> None:
                     help="run as process RANK of the multi-device phase's two-process cluster")
     ap.add_argument("--port", type=int, help="the cluster's port on 127.0.0.1 (with the above)")
     ap.add_argument("--workdir", help="the cluster's work folder (with the above)")
+    ap.add_argument("--decoder", default="FFmpegDecoder",
+                    help="the cluster's decoder class (with the above)")
     args = ap.parse_args()
     if args.distributed_worker is not None:
-        distributed_worker(args.distributed_worker, args.port, args.workdir, args.seed)
+        distributed_worker(args.distributed_worker, args.port, args.workdir, args.seed,
+                           args.decoder)
         return
     t_start = time.perf_counter()
 
@@ -2874,6 +2996,7 @@ def main() -> None:
     card = card_line()
     dev = torch.device("cuda", 0)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    probe = native_probe()
     phase_s: dict = {}
     phase_t0 = [time.perf_counter()]
 
@@ -2892,6 +3015,8 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     lap("build")
+    native_decode_phase(probe, card)
+    lap("native decode")
 
     # ---- data ------------------------------------------------------------
     t0 = time.perf_counter()

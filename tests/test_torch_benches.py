@@ -37,6 +37,8 @@ def _has(out: dict, keys: str) -> None:
 
 
 def test_bench_wav_mix(tmp_path, capsys):
+    """The default mix, now the encoded one (FLAC, MP3, Ogg Vorbis) at 12 s
+    a song, decoded by the native decoder."""
     bench.main(["--device", "cpu", "--songs", "2", "--passes", "1", "--seconds", "12",
                 "--fixtures", str(tmp_path)])
     out = _one_json_line(capsys)
@@ -44,20 +46,33 @@ def test_bench_wav_mix(tmp_path, capsys):
               "audio_secs_per_sec_best decode_share analysis_songs_per_sec decode_s_summed samples "
               "songs failed mean_song_secs passes pass_s mix device card")
     assert out["songs"] == 2 and out["failed"] == 0 and out["passes"] == 1
-    assert out["samples"] == 2 * 12 * 22050 and out["mean_song_secs"] == pytest.approx(12.0)
+    assert out["mix"] == "encoded"
+    # the FLAC song to the sample; the MP3 one within the codec's frame padding
+    assert 2 * 12 * 22050 <= out["samples"] <= 2 * 12 * 22050 + 2 * 1152
+    assert out["mean_song_secs"] == pytest.approx(12.0, abs=0.1)
     assert 0.0 <= out["decode_share"] < 1.0 and out["songs_per_sec_best"] >= out["value"] > 0
     # the fixtures are written once: a second run reuses them
-    stamps = {p.name: p.stat().st_mtime_ns for p in tmp_path.glob("*.wav")}
-    assert len(stamps) == 6
-    bench.run("cpu", "wav", 1, 1, tmp_path, 12)
-    assert stamps == {p.name: p.stat().st_mtime_ns for p in tmp_path.glob("*.wav")}
+    stamps = {p.name: p.stat().st_mtime_ns for p in tmp_path.iterdir()}
+    assert sorted(stamps) == sorted(f"12s_{n}" for n, _, _ in bench_mix())
+    bench.run("cpu", "encoded", 1, 1, tmp_path, 12)
+    assert stamps == {p.name: p.stat().st_mtime_ns for p in tmp_path.iterdir()}
 
 
 def test_fixture_mix_is_the_repo_mix():
-    """The same names (as WAV), durations and mean as benches/fixtures.py."""
-    assert [d for _, d in bench_mix()] == [170, 250, 180, 280, 175, 240]
-    assert abs(np.mean([d for _, d in bench_mix()]) - 215.8) < 0.1
-    assert [n for n, _ in bench_mix()][:2] == ["song_170s.wav", "song_250s.wav"]
+    """The JAX repo's mix (benches/fixtures.py): the same names, codecs, bit
+    rates and durations, mean 215.8 s, and the same synthesized PCM."""
+    import sys
+
+    sys.path.insert(0, str(REPO))
+    from benches import fixtures as jax_fixtures
+
+    from bliss_tpu_torch.benches import fixtures
+
+    assert bench_mix() == jax_fixtures.MIX
+    assert [d for _, _, d in bench_mix()] == [170, 250, 180, 280, 175, 240]
+    assert abs(np.mean([d for _, _, d in bench_mix()]) - 215.8) < 0.1
+    assert fixtures.RATE == jax_fixtures.RATE
+    assert np.array_equal(fixtures.music_like(3.0, 1001), jax_fixtures.music_like(3.0, 1001))
 
 
 def bench_mix():

@@ -13,7 +13,7 @@ from bliss_tpu_torch import errors as TE
 from bliss_tpu_torch.cue import BlissCue
 from bliss_tpu_torch.io import batch as TB
 from bliss_tpu_torch.io import fallback as TF
-from bliss_tpu_torch.io.decoder import DefaultDecoder
+from bliss_tpu_torch.io.decoder import DefaultDecoder, FFmpegDecoder
 from bliss_tpu_torch.song import AnalysisOptions, Song
 
 torch.set_num_threads(1)
@@ -63,7 +63,7 @@ def test_decoders_match_jax_fallback(data_dir, name, decoder):
     if name.endswith(".wav"):
         routed = TF.FallbackDecoder.decode(path)
         assert np.array_equal(routed.sample_array, want.sample_array)
-    assert DefaultDecoder is TF.FallbackDecoder
+    assert DefaultDecoder is FFmpegDecoder
 
 
 @pytest.mark.parametrize("name", ["nonexistent.flac", "nonexistent", "picture.png"])
@@ -118,13 +118,24 @@ def _by_path(results) -> dict:
     return {str(p): r for p, r in results}
 
 
-@pytest.mark.parametrize("version", [2, 1])
-def test_batched_matches_jax_on_cpu(data_dir, version):
+#: The files on which the FFI-free decoders put features up to 6.53e-4
+#: from the native decoder's (white_noise.mp3, feature 1).
+NATIVE_DRIFT = ["s32_stereo_44_1_kHz.flac", "s32_stereo_44_1_kHz.mp3", "white_noise.mp3"]
+
+
+@pytest.mark.parametrize(
+    "version,decoders",
+    [(2, "fallback"), (1, "fallback"), (2, "default"), (1, "default")],
+    ids=["2", "1", "default-2", "default-1"],
+)
+def test_batched_matches_jax_on_cpu(data_dir, version, decoders):
     """analyze_paths_batched(device="cpu") vs the JAX batch driver on the
-    JAX CPU backend, both with the FFI-free decoders: features within
-    1e-5 per feature, the same CUE tracks and metadata, the same error
-    classes for a too-short song and a missing file."""
+    JAX CPU backend, both with the FFI-free decoders or both with their
+    default (native libav) decoders: features within 1e-5 per feature, the
+    same CUE tracks and metadata, the same error classes for a too-short
+    song and a missing file."""
     from bliss_tpu.io import batch as JB
+    from bliss_tpu.io import decoder as JD
     from bliss_tpu.io import fallback as JF
     from bliss_tpu.song import AnalysisOptions as JOptions
 
@@ -135,19 +146,25 @@ def test_batched_matches_jax_on_cpu(data_dir, version):
         data_dir / "empty.wav",
         data_dir / "nonexistent.flac",
     ]
+    jax_decoder, port_decoder = JF.FallbackDecoder, TF.FallbackDecoder
+    if decoders == "default":
+        paths = [data_dir / name for name in NATIVE_DRIFT] + paths[3:]
+        jax_decoder, port_decoder = JD.DefaultDecoder, DefaultDecoder
+        assert jax_decoder is JD.FFmpegDecoder and port_decoder is FFmpegDecoder
     want = _by_path(
         JB.analyze_paths_batched(
-            JF.FallbackDecoder, paths, JOptions(features_version=version), batch_size=4
+            jax_decoder, paths, JOptions(features_version=version), batch_size=4
         )
     )
     got = _by_path(
         TB.analyze_paths_batched(
-            TF.FallbackDecoder, paths, AnalysisOptions(features_version=version),
+            port_decoder, paths, AnalysisOptions(features_version=version),
             batch_size=4, device="cpu",
         )
     )
     assert sorted(got) == sorted(want)
-    assert len(got) == 8  # 3 files, 3 CUE tracks, the CUE's missing file, an error
+    # 3 files, 3 CUE tracks, the CUE's missing file, an error; or 5 files
+    assert len(got) == (8 if decoders == "fallback" else 5)
     for key, w in want.items():
         g = got[key]
         assert type(g).__name__ == type(w).__name__, key

@@ -206,6 +206,19 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path, entry):
             Library(config, devices=["cuda", "cuda"] if entry == "library_devices" else None)
 
 
+def test_native_decoder_loads_from_the_port():
+    """The port's native decoder is built from its own sources in
+    bliss_tpu_torch/io/native/ into bliss_tpu_torch/build/ and loaded by
+    that full path, never from bliss_tpu/io/native/."""
+    from bliss_tpu_torch.io import _native, decoder
+
+    port = REPO / "bliss_tpu_torch"
+    assert _native.NATIVE == port / "io" / "native" and _native.BUILD == port / "build"
+    loaded = pathlib.Path(decoder._load_lib()._name)
+    assert loaded.is_absolute() and loaded.parent == port / "build", loaded
+    assert loaded == _native.decoder_library() and loaded.name.startswith("libbliss_decode-")
+
+
 def test_every_launch_makes_its_device_current():
     """Every kernel launch of the port goes through `_build.launch`, which
     makes the tensors' device the current one around the call and passes

@@ -127,6 +127,26 @@ def test_recycled_failed_segment_raises(tmp_path, monkeypatch):
                for cmd in spawned)
 
 
+def test_recycled_parent_builds_the_native_decoder(tmp_path, monkeypatch):
+    """With the default decoder the parent builds the native decoder before
+    it starts a worker, so the workers only load it."""
+    from bliss_tpu_torch.io import _native
+
+    events = []
+    build = _native.decoder_library
+    monkeypatch.setattr(_native, "decoder_library", lambda: events.append("build") or build())
+
+    def recording_popen(cmd, **k):
+        events.append(cmd[cmd.index("--decoder") + 1])
+        return _FakeProc()
+
+    monkeypatch.setattr(subprocess, "Popen", recording_popen)
+    with pytest.raises(BlissError, match="failed twice"):
+        _library(tmp_path, None).update_library_recycled([str(DATA / "piano.flac")], False,
+                                                         False, segment_songs=4)
+    assert events == ["build"] + ["bliss_tpu_torch.io.decoder:FFmpegDecoder"] * 2
+
+
 def test_recycled_prespawn_gates_next_segment(tmp_path, monkeypatch):
     """With more than one segment the next segment's worker is started with a
     gate before this segment's result is known; the retry is ungated, and a
