@@ -13,7 +13,9 @@ the card's name and power limit (`card`, null off a card):
   entries, bit for bit against one entry, and a gloo group's cost a round.
 
 `fixtures` encodes the headline's full-length mix. The benches decode
-with `FFmpegDecoder`, the native libav decoder, as the JAX ones do. The other files
+with `FFmpegDecoder`, the native libav decoder, as the JAX ones do;
+`--decoder fallback` names the FFI-free `FallbackDecoder` instead, for a
+host without libav (`bench_decoder`). The other files
 here compare kernels or routes beside another checkout.
 """
 
@@ -45,11 +47,20 @@ def emit(result: dict) -> None:
     sys.stdout.flush()
 
 
-def native_decoder():
-    """`FFmpegDecoder`, the benches' decoder as it is the JAX benches',
-    loaded first: where the native decoder cannot be built, a bench stops
-    here with the `DecodingError` that says why, and counts no song as
-    failed for it."""
+#: The benches' `--decoder` choices.
+DECODERS = ("native", "fallback")
+
+
+def bench_decoder(name: str = "native"):
+    """The decoder a bench decodes with. "native" (the default) is
+    `FFmpegDecoder`, as the JAX benches decode, loaded first: where it
+    cannot be built, a bench stops here with the `DecodingError` that says
+    why, and counts no song as failed for it. "fallback" is the FFI-free
+    `FallbackDecoder`, which a host without libav names explicitly."""
+    if name == "fallback":
+        from ..io.fallback import FallbackDecoder
+
+        return FallbackDecoder
     from ..io.decoder import FFmpegDecoder, _load_lib
 
     _load_lib()
@@ -66,7 +77,7 @@ def decode_once(paths, known=None, decoder=None):
     import dataclasses
     import time
 
-    base = decoder or native_decoder()
+    base = decoder or bench_decoder()
     kept, seconds = {}, {}
     for path in dict.fromkeys(str(p) for p in paths):
         if known and path in known:

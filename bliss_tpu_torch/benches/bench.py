@@ -3,6 +3,7 @@
 
     python -m bliss_tpu_torch.benches.bench [--device cuda] [--mix encoded|repo]
         [--songs 24] [--passes N] [--fixtures DIR] [--seconds S]
+        [--decoder native|fallback]
 
 `--mix encoded` (default): `--songs` full-length songs cycling over the
 six fixtures of `fixtures.py` (the JAX repo's mix: FLAC, MP3 at 192 and
@@ -13,7 +14,9 @@ drift corpus (`drift.py:CORPUS`: FLAC, MP3, Vorbis, AAC, WAV, the chroma
 synthetics, a 21-minute Vorbis medley and a CUE album), each once.
 
 Songs are decoded by `FFmpegDecoder`, the native libav decoder, as the
-JAX bench decodes them. One analysis of a synthetic 30-s song warms up
+JAX bench decodes them (`--decoder fallback`: the FFI-free
+`FallbackDecoder`, for a host without libav; the encoded mix is written
+by the native encoder all the same). One analysis of a synthetic 30-s song warms up
 (kernel builds, the first launches) and is not counted. Then `--passes`
 timed passes of `io.batch.analyze_paths_batched` with decoding (default 3
 for the encoded mix, 1 for the repo mix); the first keeps a copy of each
@@ -21,8 +24,8 @@ decoded song, and one more pass analyzes the kept songs without decoding:
 `decode_share` is the part of the median pass that decoding adds, and
 `decode_s_summed` the seconds of a pass's decodes summed over the
 driver's threads. Prints one JSON line: songs/s and audio-seconds/s,
-median and best, the decode share, the decoded sample count, and the
-card's name and power limit.
+median and best, the decode share, the decoded sample count, the decoder,
+and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import argparse
 import statistics
 import time
 
-from . import card, decode_once, emit, native_decoder
+from . import DECODERS, bench_decoder, card, decode_once, emit
 
 def repo_mix() -> list:
     from .drift import CORPUS
@@ -49,21 +52,19 @@ def timed_pass(decoder, paths, device):
     return out, time.perf_counter() - t0
 
 
-def recording_decoder():
-    """The native decoder, keeping each song it decodes by path and the
-    seconds of every decode (in the driver's threads, so they overlap)."""
+def recording_decoder(base):
+    """Decoder `base`, keeping each song it decodes by path and the seconds
+    of every decode (in the driver's threads, so they overlap)."""
     import dataclasses
 
-    native = native_decoder()
-
-    class Recording(native):
+    class Recording(base):
         kept: dict = {}
         seconds: list = []
 
         @classmethod
         def decode(cls, path):
             t0 = time.perf_counter()
-            song = native.decode(path)
+            song = base.decode(path)
             cls.seconds.append(time.perf_counter() - t0)
             cls.kept[str(path)] = dataclasses.replace(song)
             return song
@@ -83,7 +84,8 @@ def warm_up(device) -> None:
     analyze_batch(x, [n], device=device)
 
 
-def run(device="cuda", mix="encoded", songs=24, passes=None, fixtures=None, seconds=None) -> dict:
+def run(device="cuda", mix="encoded", songs=24, passes=None, fixtures=None, seconds=None,
+        decoder="native") -> dict:
     import torch
 
     from ..models.analyzer import resolve_device
@@ -91,6 +93,7 @@ def run(device="cuda", mix="encoded", songs=24, passes=None, fixtures=None, seco
     from .fixtures import MIX, ensure_bench_fixtures
 
     device = resolve_device(device)
+    base = bench_decoder(decoder)
     if mix == "encoded":
         table = MIX if seconds is None else [(f"{seconds:g}s_{n}", c, seconds) for n, c, _ in MIX]
         files = ensure_bench_fixtures(fixtures, table)
@@ -100,13 +103,13 @@ def run(device="cuda", mix="encoded", songs=24, passes=None, fixtures=None, seco
         paths = repo_mix()
         passes = passes or 1
     warm_up(device)
-    recording = recording_decoder()
+    recording = recording_decoder(base)
     times, results = [], None
     for _ in range(passes):
         results, s = timed_pass(recording, paths, device)
         times.append(s)
     kept = recording.kept
-    _, analysis_s = timed_pass(decode_once(paths, kept)[0], paths, device)
+    _, analysis_s = timed_pass(decode_once(paths, kept, base)[0], paths, device)
     ok = [r for _, r in results if isinstance(r, Song)]
     audio = sum(r.duration for r in ok)
     median, best = statistics.median(times), min(times)
@@ -129,6 +132,7 @@ def run(device="cuda", mix="encoded", songs=24, passes=None, fixtures=None, seco
         "passes": passes,
         "pass_s": times,
         "mix": mix,
+        "decoder": base.__name__,
         "device": str(device),
         "card": card(device),
         "torch": torch.__version__,
@@ -144,8 +148,10 @@ def main(argv=None) -> None:
     ap.add_argument("--fixtures", default=None, help="folder of the encoded fixtures")
     ap.add_argument("--seconds", type=float, default=None,
                     help="each fixture this long (a quick run)")
+    ap.add_argument("--decoder", choices=DECODERS, default="native")
     args = ap.parse_args(argv)
-    emit(run(args.device, args.mix, args.songs, args.passes, args.fixtures, args.seconds))
+    emit(run(args.device, args.mix, args.songs, args.passes, args.fixtures, args.seconds,
+             args.decoder))
 
 
 if __name__ == "__main__":

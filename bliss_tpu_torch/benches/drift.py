@@ -3,9 +3,10 @@ the port's CPU f64 path, Version2 and Version1 (counterpart of
 benches/tpu_drift.py).
 
     python -m bliss_tpu_torch.benches.drift [--device cuda] [--dtype float32]
-        [--paths FILE ...]
+        [--paths FILE ...] [--decoder native|fallback]
 
-Every file is decoded once, by the native decoder; the same decoded
+Every file is decoded once, by the native decoder (`--decoder fallback`:
+by `FallbackDecoder`, for a host without libav); the same decoded
 samples go through `io.batch.analyze_paths_batched` on `--device` at
 `--dtype` and on the CPU at f64, in this one process. V2 runs over
 `CORPUS` (every decodable fixture: the chroma dyads and triads, the
@@ -30,7 +31,7 @@ import sys
 
 import numpy as np
 
-from . import card, decode_once, emit
+from . import DECODERS, bench_decoder, card, decode_once, emit
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 DATA = REPO / "tests" / "data"
@@ -127,9 +128,10 @@ def audit(v2_paths=CORPUS, v1_paths=V1_SUBSET, device="cuda", dtype=None, log=pr
 
     device = resolve_device(device)
     dtype = _resolve_dtype(device, getattr(torch, dtype) if isinstance(dtype, str) else dtype)
-    decoder, decode_s = decode_once(list(v2_paths) + list(v1_paths), decoded, decoder)
+    base = decoder or bench_decoder()
+    decoder, decode_s = decode_once(list(v2_paths) + list(v1_paths), decoded, base)
     result = {"metric": "drift_max_real", "device": str(device), "dtype": str(dtype).split(".")[-1],
-              "reference": "cpu float64", "card": card(device),
+              "reference": "cpu float64", "decoder": base.__name__, "card": card(device),
               "decode_s": sum(decode_s.values())}
     failures, worst = [], 0.0
     for name, version, paths in (("v2", 2, v2_paths), ("v1", 1, v1_paths)):
@@ -179,10 +181,11 @@ def main(argv=None) -> int:
                     help="the audited route's dtype (default: f32 on a card, f64 on the CPU)")
     ap.add_argument("--paths", nargs="+", default=None,
                     help="audit these files in place of the corpus and the V1 subset")
+    ap.add_argument("--decoder", choices=DECODERS, default="native")
     args = ap.parse_args(argv)
     v2 = CORPUS if args.paths is None else [pathlib.Path(p).resolve() for p in args.paths]
     v1 = V1_SUBSET if args.paths is None else v2
-    result = audit(v2, v1, args.device, args.dtype)
+    result = audit(v2, v1, args.device, args.dtype, decoder=bench_decoder(args.decoder))
     emit(result)
     return 0 if result["ok"] else 1
 

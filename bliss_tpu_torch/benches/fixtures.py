@@ -14,6 +14,7 @@ versioned folder under the repository's ignored tmp/ and reused.
 
 from __future__ import annotations
 
+import os
 import pathlib
 import subprocess
 
@@ -92,13 +93,14 @@ def music_like(duration_s: float, seed: int, rate: int = RATE) -> np.ndarray:
 
 def encode(path: pathlib.Path, pcm: np.ndarray, rate: int, codec: tuple) -> None:
     """`pcm` ([T, C] f32) encoded by `bliss_encode` with `codec` (name,
-    bit rate or ""), written to a temporary name first so a reader never
-    sees half a file."""
+    bit rate or ""), written to a temporary name of this process first, so
+    a reader never sees half a file and two processes never share one."""
     from ..io._native import encoder
 
     name, bit_rate = codec
-    raw = path.with_name(path.name + ".f32le")
-    tmp = path.with_name(f"{path.stem}.part{path.suffix}")  # the format is the suffix's
+    pid = os.getpid()
+    raw = path.with_name(f"{path.name}.{pid}.f32le")
+    tmp = path.with_name(f"{path.stem}.{pid}.part{path.suffix}")  # the format is the suffix's
     pcm = np.ascontiguousarray(pcm, dtype="<f4")
     pcm.tofile(raw)
     try:

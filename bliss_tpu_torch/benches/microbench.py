@@ -2,10 +2,12 @@
 reference's criterion groups: descriptors, chroma, decoder, pipeline).
 
     python -m bliss_tpu_torch.benches.microbench [--device cuda] [--repeat 5]
+        [--decoder native|fallback]
 
 Decodes tests/data/s16_mono_22_5kHz.flac (the golden fixture), pads it to
 its analysis bucket on `--device`, and times each descriptor stage alone,
-the chroma stage's parts, decoding on the host and the whole analysis of
+the chroma stage's parts, decoding on the host (by the native decoder;
+`--decoder fallback`: by `FallbackDecoder`) and the whole analysis of
 the song: warm medians of `--repeat` calls after one untimed call (kernel
 builds and first launches excluded), each ended by a synchronize on a
 card. Prints a line a stage, then one JSON line with every median and the
@@ -19,13 +21,13 @@ import pathlib
 import statistics
 import time
 
-from . import card, emit, native_decoder
+from . import DECODERS, bench_decoder, card, emit
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 SONG = REPO / "tests" / "data" / "s16_mono_22_5kHz.flac"
 
 
-def run(device="cuda", repeat=5) -> dict:
+def run(device="cuda", repeat=5, decoder="native") -> dict:
     import torch
 
     from ..models import chroma as CH
@@ -38,9 +40,9 @@ def run(device="cuda", repeat=5) -> dict:
     from ..tables import default_tables
 
     device = resolve_device(device)
-    native = native_decoder()
+    base = bench_decoder(decoder)
     dtype = _resolve_dtype(device, None)
-    decoded = native.decode(SONG)
+    decoded = base.decode(SONG)
     n = len(decoded.sample_array)
     tpad = bucket_length(n)
     x = torch.zeros((1, tpad), dtype=torch.float32, device=device)
@@ -86,7 +88,7 @@ def run(device="cuda", repeat=5) -> dict:
             spec, tuning, CH.WINDOW_SIZE, tab),
         "chroma: interval features": lambda: CH.chroma_interval_features(
             chroma, frame_mask, tab["interval_indices"]),
-        "decode (host)": lambda: native.decode(SONG),
+        "decode (host)": lambda: base.decode(SONG),
         "full analysis (1 song)": lambda: analyze_samples(
             decoded.sample_array, n, 2, device=device).cpu(),
     }
@@ -101,6 +103,7 @@ def run(device="cuda", repeat=5) -> dict:
         "samples": n,
         "bucket": tpad,
         "repeat": repeat,
+        "decoder": base.__name__,
         "tuning_route": "fused" if fused else "unfused",
         "device": str(device),
         "card": card(device),
@@ -112,8 +115,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m bliss_tpu_torch.benches.microbench")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--repeat", type=int, default=5)
+    ap.add_argument("--decoder", choices=DECODERS, default="native")
     args = ap.parse_args(argv)
-    emit(run(args.device, args.repeat))
+    emit(run(args.device, args.repeat, args.decoder))
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@
     python -m bliss_tpu_torch.benches.soak [--phase gen|run|kill-resume|all]
         [--n 1000] [--unique U] [--durations 150 280] [--device cuda]
         [--recycle N] [--dir DIR] [--rss-cap-mb 8192] [--period 5]
+        [--decoder native|fallback]
 
 `gen` synthesizes `--n` full-length mono 22.05 kHz WAV songs (tiled noise
 beds, gated tones, a beat; 150-280 s each from seed 42), plus a missing, a
@@ -11,7 +12,9 @@ corrupt and a too-short input, under `--dir` (default tmp/soak). With
 links to them: every path is still analyzed on its own.
 
 `run` drives `Library.update_library` over all of them on `--device` (with
-`--recycle N`, `update_library_recycled` in N-song worker processes) while
+`--recycle N`, `update_library_recycled` in N-song worker processes),
+decoding with the native decoder (`--decoder fallback`: `FallbackDecoder`,
+for a host without libav), while
 a thread samples, every `--period` seconds, the resident memory of this
 process and of every process whose parent chain leads to it (from /proc).
 It checks that every input lands in the song table or the failed-song
@@ -46,7 +49,7 @@ import wave
 
 import numpy as np
 
-from . import card, emit, native_decoder
+from . import DECODERS, bench_decoder, card, emit
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 SAMPLE_RATE = 22050
@@ -118,12 +121,12 @@ def phase_gen(args) -> None:
 def open_library(args, fresh: bool):
     from ..library import BaseConfig, Library
 
-    native = native_decoder()
+    decoder = bench_decoder(args.decoder)
     db, cfg = args.dir / "soak.db", args.dir / "soak_config.json"
     if fresh:
         for f in (db, cfg):
             f.unlink(missing_ok=True)
-    return Library(BaseConfig(config_path=cfg, database_path=db), native,
+    return Library(BaseConfig(config_path=cfg, database_path=db), decoder,
                    device=args.device)
 
 
@@ -190,6 +193,7 @@ def phase_run(args) -> dict:
         "rss_samples": len(rss.samples),
         "rss_cap_mb": args.rss_cap_mb,
         "recycle_segment_songs": args.recycle,
+        "decoder": lib.decoder_cls.__name__,
         "ok": not failures,
         "failures": failures,
         "device": args.device,
@@ -205,7 +209,7 @@ def phase_kill_resume(args) -> dict:
     kill_after = min(max(1, args.n // 8), max(1, args.n - 1))
     cmd = [sys.executable, "-m", "bliss_tpu_torch.benches.soak", "--phase", "run",
            "--n", str(args.n), "--dir", str(args.dir), "--device", args.device, "--resume",
-           "--kill-after", str(kill_after)]
+           "--kill-after", str(kill_after), "--decoder", args.decoder]
     child = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=3600)
     if child.returncode != -signal.SIGKILL:
         raise AssertionError(f"the run was not killed (rc={child.returncode}):\n"
@@ -268,6 +272,7 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true",
                     help="keep the existing soak store (used by kill-resume)")
     ap.add_argument("--kill-after", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--decoder", choices=DECODERS, default="native")
     args = ap.parse_args(argv)
     args.dir = args.dir.resolve()
 

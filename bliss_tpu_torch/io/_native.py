@@ -16,7 +16,6 @@ pkg-config cannot find, or the compiler's first error line.
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import pathlib
@@ -25,6 +24,7 @@ import subprocess
 import threading
 
 from ..errors import DecodingError
+from ..ops._build import _tmp
 
 NATIVE = pathlib.Path(__file__).resolve().parent / "native"
 BUILD = NATIVE.parents[1] / "build"
@@ -85,8 +85,7 @@ def _build(what: str, stem: str, source: str, flags: list, suffix: str) -> pathl
                 _failed[stem] = DecodingError(f"cannot build the native {what}: g++ not found")
                 raise _failed[stem]
             BUILD.mkdir(parents=True, exist_ok=True)
-            # per process: two processes building the same file never share one
-            tmp = f"{out}.{os.getpid()}.tmp"
+            tmp = _tmp(out)
             proc = subprocess.run([cxx, *flags, "-o", tmp, str(src), *LDLIBS],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
@@ -113,20 +112,20 @@ def probe() -> dict:
     """What the native build needs and whether it built: each libav
     library's version, the path of g++, each build's path or error, and
     `ok`, whether the decoder built and loads."""
+    from .decoder import _load_lib
+
     out = {"libav": libav_versions(), "g++": shutil.which("g++"), "ok": False}
     for name, build in (("decoder", decoder_library), ("encoder", encoder)):
         try:
-            path = build()
+            out[name] = str(build().relative_to(BUILD.parent.parent))
         except DecodingError as e:
             out[name] = f"not built: {e.args[0]}"
-            continue
-        out[name] = str(path.relative_to(BUILD.parent.parent))
-        if name == "decoder":
-            try:
-                ctypes.CDLL(str(path))
-                out["ok"] = True
-            except OSError as e:
-                out[name] += f" (not loadable: {e})"
+    if not out["decoder"].startswith("not built"):
+        try:
+            _load_lib()
+            out["ok"] = True
+        except DecodingError as e:
+            out["decoder"] += f" (not loadable: {e.args[0]})"
     return out
 
 

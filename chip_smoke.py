@@ -12,8 +12,9 @@
    native decoder and encoder (`bliss_tpu_torch/io/native/`) built into
    `bliss_tpu_torch/build/`. Where they built, every phase that decodes
    uses the default decoder, `FFmpegDecoder`; where not, each passes
-   `FallbackDecoder` explicitly and the examples phase does not run (the
-   line says so);
+   `FallbackDecoder` explicitly, the examples' CLIs run under a `-c` stub
+   that makes it their `DefaultDecoder`, and the native-decode phase does
+   not run (the line says so);
 2. builds every CUDA kernel of `bliss_tpu_torch/csrc` (one nvcc each, in
    parallel) into `bliss_tpu_torch/build/`; then the native-decode phase:
    the reference's golden adler32 hashes of seven fixtures and the tags of
@@ -177,7 +178,9 @@
    peak RSS of this process and of the workers;
 14. examples: ci_check.sh's example sequence on the port's CLIs
    (`python3 -m bliss_tpu_torch.examples.<name> ... --device cuda`, four
-   chains at once, the extra-info library in a folder of its own):
+   chains at once, the extra-info library in a folder of its own; where
+   the native decoder did not build, each CLI through a `-c` stub that sets
+   `io.decoder.DefaultDecoder = FallbackDecoder` and then runs the module):
    every exit 0, the .m3u not empty, the printed vector within 1e-6 of
    the files phase's;
 15. V1 audit: `bliss_tpu_torch/benches/drift.py` over its V1 subset on the
@@ -1333,9 +1336,8 @@ def native_probe() -> dict:
     DECODER = DefaultDecoder if probe["ok"] else FallbackDecoder
     libav = ", ".join(f"{k} {v or 'MISSING'}" for k, v in probe["libav"].items())
     use = ("every phase that decodes uses the default decoder, FFmpegDecoder" if probe["ok"] else
-           "every phase that decodes passes FallbackDecoder explicitly; the native-decode phase "
-           "and the examples phase (its CLIs decode with DefaultDecoder, the native decoder) do "
-           "not run")
+           "every phase that decodes passes FallbackDecoder explicitly, the examples' CLIs run "
+           "under a stub that makes it their DefaultDecoder; the native-decode phase does not run")
     print(f"native decoder probe: pkg-config: {libav}; g++ {probe['g++']}; decoder "
           f"{probe['decoder']}; encoder {probe['encoder']} ({time.perf_counter() - t0:.2f} s); "
           f"{use}", flush=True)
@@ -2853,21 +2855,40 @@ def recycled_phase(files: dict, decoded: dict, card: str, segment_songs: int = 4
         fail("recycled phase: " + "; ".join(failures))
 
 
+def example_command(name: str) -> list:
+    """The command that starts the command-line example `name` with
+    DECODER as its DefaultDecoder: `python3 -m` where DECODER is the
+    default; else a `-c` stub that makes DECODER (FallbackDecoder) the
+    DefaultDecoder of `io.decoder` (the examples import it, and `Library`
+    resolves it, after the stub ran) and then runs the module as
+    `__main__`."""
+    from bliss_tpu_torch.io.decoder import DefaultDecoder
+
+    module = f"bliss_tpu_torch.examples.{name}"
+    if DECODER is DefaultDecoder:
+        return [sys.executable, "-m", module]
+    return [sys.executable, "-c",
+            f"import runpy, bliss_tpu_torch.io.decoder as d, {DECODER.__module__} as m; "
+            f"d.DefaultDecoder = m.{DECODER.__qualname__}; "
+            f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)"]
+
+
 def examples_phase(files: dict, card: str) -> None:
     """ci_check.sh's example sequence on the port's command-line examples
     (`python3 -m bliss_tpu_torch.examples.<name> ... --device cuda`), in
     four chains that run at once (each library's init, then its playlist;
     the extra-info library in a folder of its own, so the two stores do
     not share a file): every exit 0, the .m3u not empty, the printed
-    vector of s16_mono_22_5kHz.flac within 1e-6 of the files phase's."""
+    vector of s16_mono_22_5kHz.flac within 1e-6 of the files phase's.
+    The CLIs decode with DefaultDecoder, as the JAX ones do; where the
+    native decoder did not build, each runs through `example_command`'s
+    stub, with FallbackDecoder as their DefaultDecoder."""
     import shutil
 
     from bliss_tpu_torch.io.decoder import DefaultDecoder
 
-    if DECODER is not DefaultDecoder:
-        print("examples: not run, their CLIs decode with DefaultDecoder, the native decoder, "
-              "which did not build on this host (see the probe line)", flush=True)
-        return
+    via = ("" if DECODER is DefaultDecoder else
+           ", each through a stub making FallbackDecoder their DefaultDecoder (no native decoder)")
     work = REPO / "tmp" / "smoke_examples"
     shutil.rmtree(work, ignore_errors=True)
     music = work / "music"
@@ -2894,8 +2915,7 @@ def examples_phase(files: dict, card: str) -> None:
         for name, args in chain:
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [sys.executable, "-m", f"bliss_tpu_torch.examples.{name}", *args,
-                 "--device", "cuda"],
+                [*example_command(name), *args, "--device", "cuda"],
                 cwd=REPO, capture_output=True, text=True, timeout=600,
             )
             label = name if args[0] not in ("init", "playlist") else f"{name} {args[0]}"
@@ -2925,7 +2945,7 @@ def examples_phase(files: dict, card: str) -> None:
             gap = float(np.abs(vec - ref.analysis.as_arr1()).max())
             if gap > 1e-6:
                 failures.append(f"analyze's vector {gap:.3g} from the files phase's (limit 1e-6)")
-        print(f"examples: ci_check.sh's {sum(map(len, chains))} steps with --device cuda in "
+        print(f"examples: ci_check.sh's {sum(map(len, chains))} steps with --device cuda{via} in "
               f"{wall:.1f} s ({', '.join(f'{k} {s:.1f} s' for k, (_, s) in outs.items())}); "
               f"every exit {'0' if not failures else 'NOT 0'}, playlist.m3u "
               f"{len(m3u.read_text().splitlines()) if m3u.exists() else 0} lines, analyze's vector "

@@ -178,3 +178,27 @@ def test_rss_sampler_sees_children():
                                  "time.sleep(1)"])
         proc.wait()
     assert rss.child_peak_mb > 60 and rss.peak_mb >= rss.root_peak_mb + 60
+
+
+@pytest.mark.parametrize("name", ["microbench", "drift"])
+def test_bench_decodes_with_the_fallback_decoder(name, capsys, monkeypatch):
+    """`--decoder fallback` names FallbackDecoder and never loads the
+    native decoder, so a host without libav runs the bench; the JSON line
+    names the decoder."""
+    from bliss_tpu_torch.io import decoder
+
+    def no_native():
+        raise AssertionError("the native decoder was loaded")
+
+    monkeypatch.setattr(decoder, "_load_lib", no_native)
+    if name == "microbench":
+        microbench.main(["--device", "cpu", "--repeat", "1", "--decoder", "fallback"])
+    else:
+        assert drift.main(["--device", "cpu", "--dtype", "float32", "--decoder", "fallback",
+                           "--paths", str(DATA / "piano.flac")]) == 0
+    out = _one_json_line(capsys)
+    assert out["decoder"] == "FallbackDecoder"
+    if name == "microbench":
+        assert out["stages_ms"]["decode (host)"] > 0
+    else:
+        assert out["ok"] and out["v2"]["real"] == 1

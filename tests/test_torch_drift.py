@@ -1,7 +1,9 @@
 """The accuracy contract on the card (counterpart of tests/test_tpu_drift.py):
 the whole drift corpus at V2 and the V1 subset through the batch driver on
 the card at f32, against the port's CPU f64 path on the same decoded
-samples (bliss_tpu_torch/benches/drift.py): at most 1e-4 per feature on
+samples (bliss_tpu_torch/benches/drift.py), decoded by FallbackDecoder,
+which every host can run (the audit compares two routes on one decode, so
+the decoder does not change what it checks): at most 1e-4 per feature on
 real content, at most 2e-2 and the same dominant chroma on the pure-tone
 and dyad synthetics, and the same failures. Needs a card; run on the GPU
 host with
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from bliss_tpu_torch.benches import drift
+from bliss_tpu_torch.io.fallback import FallbackDecoder
 
 
 @pytest.fixture
@@ -24,7 +27,7 @@ def cuda():
 
 @pytest.mark.cuda
 def test_cuda_corpus_contract(cuda):
-    result = drift.audit(drift.CORPUS, drift.V1_SUBSET, cuda)
+    result = drift.audit(drift.CORPUS, drift.V1_SUBSET, cuda, decoder=FallbackDecoder)
     assert result["ok"], "\n".join(result["failures"])
     # the corpus: 55 files and the CUE album's tracks; 22 degenerate
     # synthetics, so at least 34 real-content vectors carry the 1e-4 bound,

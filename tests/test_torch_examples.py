@@ -116,3 +116,26 @@ def test_library_playlists(sequence):
     assert len(lines) == 2 and lines[0] == seed
     extra = runs["extra playlist"][1].splitlines()
     assert len(extra) == 2 and extra[0].startswith(seed + " {'size': ")
+
+
+def test_chip_smoke_runs_the_examples_on_its_decoder(monkeypatch):
+    """Where the native decoder does not build, chip_smoke.py starts each
+    example through a stub that makes FallbackDecoder its DefaultDecoder:
+    the printed vector is FallbackDecoder's, not FFmpegDecoder's, on a file
+    where the two decoders' features differ."""
+    import chip_smoke
+    from bliss_tpu_torch.io.decoder import FFmpegDecoder
+    from bliss_tpu_torch.io.fallback import FallbackDecoder
+
+    song = "tests/data/white_noise.mp3"
+    monkeypatch.setattr(chip_smoke, "DECODER", FallbackDecoder)
+    proc = subprocess.run([*chip_smoke.example_command("analyze"), song, "--device", "cpu"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    (line,) = proc.stdout.splitlines()
+    vec = np.asarray(_vector(line), np.float32)
+    fallback = FallbackDecoder.song_from_path(song, device="cpu").analysis.as_arr1()
+    native = FFmpegDecoder.song_from_path(song, device="cpu").analysis.as_arr1()
+    assert np.abs(vec - fallback).max() <= 1e-6 < np.abs(vec - native).max()
+    monkeypatch.setattr(chip_smoke, "DECODER", FFmpegDecoder)
+    assert chip_smoke.example_command("analyze")[1:] == ["-m", "bliss_tpu_torch.examples.analyze"]
