@@ -27,6 +27,7 @@ built for a 10-70 MB/s tunnel).
 
 from __future__ import annotations
 
+import itertools
 import pathlib
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import dataclass
@@ -44,6 +45,7 @@ from ..models.analyzer import (
     resolve_devices,
 )
 from ..song import AnalysisOptions, Song
+from ..utils.profiling import RECORDER
 
 #: Songs per batch up to `LONG_SONG` samples of bucket; above it B is a
 #: quarter of that, to bound the working set of one batch.
@@ -85,10 +87,14 @@ class _Staging:
         slot = self.next
         self.next = (slot + 1) % len(self.buffers)
         if self.events[slot] is not None:
+            sp = RECORDER.begin("batch.slot_wait")
             self.events[slot].synchronize()
+            sp.end()
         buf = self.buffers[slot]
         if buf is None or buf.numel() < b * padded:
+            sp = RECORDER.begin("batch.pin_alloc")
             buf = torch.empty(b * padded, dtype=torch.float32, pin_memory=True)
+            sp.end()
             self.buffers[slot] = buf
         return slot, buf[: b * padded].view(b, padded)
 
@@ -205,22 +211,30 @@ def analyze_paths_batched(
         return out
 
     buckets: dict = {}
-    #: each bucket's groups: [[(entries, features [b, F] on the host, event)]]
+    #: each bucket's sequence id and groups:
+    #: [(id, [(entries, features [b, F] on the host, event)])]
     in_flight: list = []
+    batch_ids = itertools.count()
 
     def launch(i: int, entries, b: int, padded: int):
         """Analyze `entries` as a `[b, padded]` batch on list entry `i`."""
         dev = devs[i]
         if staging is None:
             host = np.empty((b, padded), np.float32)
-            lengths = _fill(host, entries)
-            x = torch.from_numpy(host)
         else:
             slot, host_t = staging[i].host(b, padded)
-            lengths = _fill(host_t.numpy(), entries)
-            x = staging[i].upload(slot, host_t)
+            host = host_t.numpy()
+        sp = RECORDER.begin("batch.fill")
+        lengths = _fill(host, entries)
+        if sp:
+            sp.end(rows=len(entries), samples=sum(e.n for e in entries))
+        sp = RECORDER.begin("batch.upload")
+        x = torch.from_numpy(host) if staging is None else staging[i].upload(slot, host_t)
         lens = torch.as_tensor(lengths, device=dev)
+        sp.end()
+        sp = RECORDER.begin("analyze")
         feats = analyze_tensor(x, lens, version, dtype)
+        sp.end()
         if staging is None:
             return entries, feats, None
         out = torch.empty(feats.shape, dtype=feats.dtype, pin_memory=True)
@@ -234,15 +248,27 @@ def analyze_paths_batched(
         n_dev = _usable_ndev(b, len(devs))
         per = b // n_dev
         groups = [entries[i * per : (i + 1) * per] for i in range(n_dev)]
-        in_flight.append([launch(i, g, per, padded) for i, g in enumerate(groups) if g])
+        batch = next(batch_ids)
+        sp = RECORDER.begin("batch.dispatch", batch)
+        in_flight.append((batch, [launch(i, g, per, padded) for i, g in enumerate(groups) if g]))
+        sp.end()
 
     def drain(keep: int = 0):
         while len(in_flight) > keep:
-            for entries, out, done in in_flight.pop(0):
+            batch, groups = in_flight.pop(0)
+            sp = RECORDER.begin("batch.drain", batch)
+            songs = []
+            for entries, out, done in groups:
                 if done is not None:
+                    wait_sp = RECORDER.begin("batch.card_wait")
                     done.synchronize()
-                for e, f in zip(entries, out.numpy()):
-                    yield e.path, _make_song(e.raw, f, options)
+                    wait_sp.end()
+                songs_sp = RECORDER.begin("batch.songs")
+                songs += [(e.path, _make_song(e.raw, f, options))
+                          for e, f in zip(entries, out.numpy())]
+                songs_sp.end()
+            sp.end()
+            yield from songs  # no span stays open across a yield
 
     def place(d: _Decoded):
         """Put one decoded song into its bucket; returns (finished, key):
@@ -282,7 +308,9 @@ def analyze_paths_batched(
 
         top_up()
         while futures:
+            sp = RECORDER.begin("batch.decode_wait")
             done, futures = wait(futures, return_when=FIRST_COMPLETED)
+            sp.end()
             for fut in done:
                 for d in fut.result():
                     finished, key = place(d)

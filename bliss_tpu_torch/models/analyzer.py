@@ -19,6 +19,7 @@ from ..errors import AnalysisError
 from ..routes import DEFAULT as DEFAULT_ROUTES
 from ..routes import Routes
 from ..tables import Tables, default_tables
+from ..utils.profiling import RECORDER
 from . import chroma as chroma_model
 from . import loudness as loudness_model
 from . import tempo as tempo_model
@@ -108,13 +109,24 @@ def analyze_tensor(
         0.0,
     )
     tab = (tables or default_tables()).on(dev)
+    # each stage's span is the host's enqueue of its work, not the card's
+    sp = RECORDER.begin("analyze.tempo")
     tempo = tempo_model.tempo_feature(signal, lengths, tab, route=routes.tempo)
+    sp.end()
+    sp = RECORDER.begin("analyze.zcr")
     zcr = timbral_model.zcr_feature(signal, lengths)
+    sp.end()
+    sp = RECORDER.begin("analyze.timbral")
     spectral = timbral_model.spectral_features(signal, lengths, tab, routes.timbral)
+    sp.end()
+    sp = RECORDER.begin("analyze.loudness")
     loud = loudness_model.loudness_features(signal, lengths)
+    sp.end()
+    sp = RECORDER.begin("analyze.chroma")
     chroma = chroma_model.chroma_features(
         signal, lengths, version, dtype, tab, routes.chroma_stft
     )
+    sp.end()
     return torch.cat(
         [tempo.unsqueeze(-1), zcr.unsqueeze(-1), spectral, loud, chroma.to(torch.float32)],
         dim=-1,

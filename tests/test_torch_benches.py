@@ -4,14 +4,13 @@ helpers (bliss_tpu_torch/utils/profiling.py)."""
 
 import json
 import pathlib
-import time
 
 import numpy as np
 import pytest
 import torch
 
 from bliss_tpu_torch.benches import bench, drift, microbench, playlist_bench, soak
-from bliss_tpu_torch.utils.profiling import RssSampler, StageTimer, device_trace
+from bliss_tpu_torch.utils.profiling import RssSampler, device_trace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 DATA = REPO / "tests" / "data"
@@ -147,18 +146,6 @@ def test_microbench(capsys):
     for stage in ("tempo (full)", "chroma (full)", "chroma: estimate_tuning", "decode (host)",
                   "full analysis (1 song)"):
         assert out["stages_ms"][stage] > 0
-
-
-def test_stage_timer_report():
-    timer = StageTimer()
-    for _ in range(2):
-        with timer.stage("decode"):
-            time.sleep(0.01)
-    with timer.stage("analyze"):
-        pass
-    lines = timer.report().splitlines()
-    assert lines[0].startswith("decode") and "(2 calls)" in lines[0]
-    assert lines[1].startswith("analyze") and "(1 calls)" in lines[1]
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
