@@ -12,7 +12,10 @@ pinned host buffer of its entry's own ring and copied on that entry's
 side stream with `non_blocking=True`; an event per buffer keeps it from
 being refilled before its copy has ended, and the analysis waits on that
 event. At most `in_flight_batches` buckets stay on the devices before
-their `[B, 23]` features are fetched.
+their `[B, 23]` features are fetched. A batch of more than a few MB is
+copied into its staging buffer on several threads: the driver's and a
+small pool of its own, each copying its share without the GIL
+(`_fill`).
 
 Over a list of more than one entry, a song longer than `LONGSONG_SAMPLES`
 (20 minutes, the JAX driver's default bound) goes alone through the
@@ -27,7 +30,9 @@ built for a 10-70 MB/s tunnel).
 
 from __future__ import annotations
 
+import ctypes
 import itertools
+import os
 import pathlib
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import dataclass
@@ -58,6 +63,13 @@ IN_FLIGHT_BATCHES = 3
 #: Songs above this many samples take the long-song route over a list of
 #: more than one entry (bliss_tpu/io/batch.py:_longsong_threshold's default).
 LONGSONG_SAMPLES = 20 * 60 * 22050
+
+#: A fill takes one thread for each this many bytes of songs: a smaller
+#: share costs more to hand to a thread than its copy takes.
+FILL_SPLIT_BYTES = 4 << 20
+
+#: The most threads one fill takes, however many cores the process has.
+FILL_MAX_THREADS = 8
 
 
 @dataclass
@@ -111,17 +123,75 @@ class _Staging:
         return x
 
 
-def _fill(host: np.ndarray, entries: List[_Decoded]) -> np.ndarray:
-    """Write each song into its row and return the `[B]` valid lengths.
-    Samples past a length are never read (analyze_tensor zeroes them);
-    an empty slot repeats the first song's opening samples."""
+def _usable_cores() -> int:
+    """The cores this process may run on."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        return os.cpu_count() or 1
+
+
+def _fill_cap() -> int:
+    """The most threads a fill may take: the usable cores, at most
+    `FILL_MAX_THREADS`. A split copy takes the decode threads' cores only
+    for the few milliseconds it lasts; a scan whose decoding sets the pace
+    spends well under 1% of its CPU time copying, however it is split."""
+    return max(1, min(FILL_MAX_THREADS, _usable_cores()))
+
+
+def _copy_parts(parts) -> None:
+    """Run `ctypes.memmove` over `(dst, src, nbytes)` triples; each call
+    releases the GIL for its copy."""
+    for dst, src, nbytes in parts:
+        ctypes.memmove(dst, src, nbytes)
+
+
+def _fill(
+    host: np.ndarray, entries: List[_Decoded], pool: ThreadPoolExecutor, cap: int
+) -> Tuple[np.ndarray, int]:
+    """Write each song into its row; return the `[B]` valid lengths and the
+    number of threads that shared the copy.
+
+    The songs' bytes, taken in row order, are cut into equal shares, one a
+    thread: one thread for each `FILL_SPLIT_BYTES`, at most `cap`. The
+    calling thread copies the first share and `pool` (`cap - 1` workers)
+    the others, and the call returns once every share has landed. A song
+    that is not contiguous f32 is converted first, as an assignment would.
+    Samples past a length are never read (analyze_tensor zeroes them); an
+    empty slot repeats the first song's opening samples."""
+    if host.dtype != np.float32 or not host.flags.c_contiguous:
+        raise ValueError("the staging buffer must be C-contiguous float32")
     lengths = np.full(host.shape[0], MIN_SAMPLES, np.int64)
+    sources = []
     for i, e in enumerate(entries):
-        host[i, : e.n] = e.raw.sample_array
-        e.raw.sample_array = None  # the staged copy is the batch's now
+        src = np.ascontiguousarray(e.raw.sample_array, dtype=np.float32)
+        if src.shape != (e.n,) or e.n > host.shape[1]:
+            raise ValueError(f"song of {src.shape} samples for a row of {host.shape[1]}")
+        sources.append(src)
         lengths[i] = e.n
+    total = sum(src.nbytes for src in sources)
+    threads = max(1, min(cap, total // FILL_SPLIT_BYTES))
+    share = -(-total // threads)
+    parts: list = [[] for _ in range(threads)]
+    at = 0  # bytes given out so far
+    for i, src in enumerate(sources):
+        dst, ptr, left = host.ctypes.data + i * host.strides[0], src.ctypes.data, src.nbytes
+        while left:
+            j = at // share
+            n = min(left, (j + 1) * share - at)
+            parts[j].append((dst, ptr, n))
+            dst, ptr, left, at = dst + n, ptr + n, left - n, at + n
+    helpers = [pool.submit(_copy_parts, p) for p in parts[1:]]
+    try:
+        _copy_parts(parts[0])
+    finally:  # no helper may still be writing once this returns
+        wait(helpers)
+    for f in helpers:
+        f.result()
+    for e in entries:
+        e.raw.sample_array = None  # the staged copy is the batch's now
     host[len(entries) :, :MIN_SAMPLES] = host[0, :MIN_SAMPLES]
-    return lengths
+    return lengths, threads
 
 
 def _longsong_route(
@@ -189,6 +259,7 @@ def analyze_paths_batched(
     workers = decode_workers or min(int(options.number_cores), max(len(paths), 1))
     on_card = devs[0].type == "cuda"
     staging = [_Staging(in_flight_batches + 1, d) for d in devs] if on_card else None
+    fill_cap = _fill_cap()
 
     def decode_one(item):
         order, path = item
@@ -225,9 +296,9 @@ def analyze_paths_batched(
             slot, host_t = staging[i].host(b, padded)
             host = host_t.numpy()
         sp = RECORDER.begin("batch.fill")
-        lengths = _fill(host, entries)
+        lengths, threads = _fill(host, entries, fill_pool, fill_cap)
         if sp:
-            sp.end(rows=len(entries), samples=sum(e.n for e in entries))
+            sp.end(rows=len(entries), samples=sum(e.n for e in entries), threads=threads)
         sp = RECORDER.begin("batch.upload")
         x = torch.from_numpy(host) if staging is None else staging[i].upload(slot, host_t)
         lens = torch.as_tensor(lengths, device=dev)
@@ -294,7 +365,9 @@ def analyze_paths_batched(
         return [], key
 
     window = max(workers * 2, batch_size)
-    with ThreadPoolExecutor(max_workers=workers) as pool:
+    with ThreadPoolExecutor(max_workers=workers) as pool, ThreadPoolExecutor(
+        max_workers=max(1, fill_cap - 1), thread_name_prefix="bliss-fill"
+    ) as fill_pool:
         inputs = iter(enumerate(paths))
         futures = set()
 

@@ -4,6 +4,8 @@ per-song entry points, and the batch driver `analyze_paths_batched`
 (features within 1e-5, the same tracks, metadata and error classes)."""
 
 import pathlib
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from bliss_tpu_torch.cue import BlissCue
 from bliss_tpu_torch.io import batch as TB
 from bliss_tpu_torch.io import fallback as TF
 from bliss_tpu_torch.io.decoder import DefaultDecoder, FFmpegDecoder
+from bliss_tpu_torch.models.analyzer import MIN_SAMPLES
 from bliss_tpu_torch.song import AnalysisOptions, Song
 
 torch.set_num_threads(1)
@@ -201,6 +204,59 @@ def test_batched_buckets_and_long_batch(data_dir, monkeypatch):
     np.testing.assert_array_equal(
         out[str(paths[0])].analysis.as_arr1(), out[str(paths[1])].analysis.as_arr1()
     )
+
+
+def _assign_fill(host, arrays):
+    """The staging as one thread wrote it before the split: an assignment a
+    song, empty slots repeating row 0's opening; the reference."""
+    lengths = np.full(host.shape[0], MIN_SAMPLES, np.int64)
+    for i, a in enumerate(arrays):
+        host[i, : len(a)] = a
+        lengths[i] = len(a)
+    host[len(arrays) :, :MIN_SAMPLES] = host[0, :MIN_SAMPLES]
+    return lengths
+
+
+@pytest.mark.parametrize(
+    "rows,padded,lengths,source,split",
+    [
+        (4, 1 << 14, [9000, 12000, 16000, 10000], "f32", False),
+        (4, 1 << 21, [2_000_001, 1_234_567, 1_500_000, 333], "f32", True),
+        (4, 1 << 21, [2_097_152, 1_000_003], "f32", True),
+        (4, 1 << 14, [16384, 9001], "f32", False),
+        (4, 1 << 21, [1_800_000, 2_000_000, 700_001], "read-only", True),
+        (4, 1 << 21, [1_900_000, 2_000_000, 1_000_001, 5], "f64", True),
+        (3, 1 << 21, [1_500_000, 2_096_000, 1_999_999], "strided", True),
+    ],
+    ids=["one-thread", "split-uneven", "split-part-full", "one-thread-part-full",
+         "read-only", "f64", "strided"],
+)
+def test_fill_stages_what_one_thread_assigns(rows, padded, lengths, source, split):
+    """`_fill` over the driver's thread and three helpers writes the staging
+    buffer and the lengths bit for bit as the one-thread assignment does,
+    under and over the split threshold, for part-full buckets, read-only,
+    f64 and strided songs and rows of uneven length, and drops each song's
+    samples once staged."""
+    rng = np.random.default_rng(len(lengths) * 1000 + padded)
+    arrays = []
+    for n in lengths:
+        a = rng.standard_normal(2 * n if source == "strided" else n)
+        a = a[::2] if source == "strided" else a.astype(np.float64 if source == "f64" else np.float32)
+        if source == "read-only":
+            a.setflags(write=False)
+        arrays.append(a)
+    base = rng.standard_normal((rows, padded), dtype=np.float32)
+    want, got = base.copy(), base.copy()
+    want_lengths = _assign_fill(want, arrays)
+    entries = [TB._Decoded(i, pathlib.Path(f"{i}.pcm"), raw=SimpleNamespace(sample_array=a), n=len(a))
+               for i, a in enumerate(arrays)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        got_lengths, threads = TB._fill(got, entries, pool, cap=4)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(got_lengths, want_lengths)
+    assert all(e.raw.sample_array is None for e in entries)
+    assert threads == max(1, min(4, 4 * sum(lengths) // TB.FILL_SPLIT_BYTES))
+    assert (threads > 1) == split
 
 
 @pytest.mark.cuda

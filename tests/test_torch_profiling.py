@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from bliss_tpu_torch.io import batch
 from bliss_tpu_torch.io.batch import analyze_paths_batched
 from bliss_tpu_torch.io.decoder import Decoder, PreAnalyzedSong
 from bliss_tpu_torch.utils import profiling
@@ -93,8 +94,26 @@ def test_driver_and_analyzer_spans_nest_by_batch(recorder):
     fills = [s for s in spans if s.name == "batch.fill"]
     assert sum(s.args["rows"] for s in fills) == len(LENGTHS)
     assert sum(s.args["samples"] for s in fills) == sum(LENGTHS)
+    assert all(s.args["threads"] == 1 for s in fills)  # short songs: one thread
     waits = [s for s in spans if s.name == "batch.decode_wait"]
     assert waits and all(s.parent == -1 and s.batch == -1 for s in waits)
+
+
+def test_a_split_fill_records_its_threads_on_the_drivers_thread(recorder, monkeypatch):
+    """A batch past the split threshold is copied by several threads, and
+    its `batch.fill` span, like every other, is the driver's and says how
+    many threads shared the copy."""
+    monkeypatch.setattr(batch, "FILL_SPLIT_BYTES", 16 << 10)
+    monkeypatch.setattr(batch, "_usable_cores", lambda: 8)
+    with profile(activities=[ProfilerActivity.CPU]):
+        scan()
+    spans = recorder.take()
+    assert {s.thread for s in spans} == {threading.get_native_id()}
+    fills = [s for s in spans if s.name == "batch.fill"]
+    assert len(fills) == 3 and sum(s.args["rows"] for s in fills) == len(LENGTHS)
+    for s in fills:
+        assert s.args["threads"] == max(1, min(8, 4 * s.args["samples"] // (16 << 10)))
+    assert max(s.args["threads"] for s in fills) > 1
 
 
 def test_a_span_encloses_the_profilers_event_of_its_op(recorder):
