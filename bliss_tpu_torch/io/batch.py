@@ -11,11 +11,13 @@ bucket's empty groups run nothing. On a card each group is staged in a
 pinned host buffer of its entry's own ring and copied on that entry's
 side stream with `non_blocking=True`; an event per buffer keeps it from
 being refilled before its copy has ended, and the analysis waits on that
-event. At most `in_flight_batches` buckets stay on the devices before
-their `[B, 23]` features are fetched. A batch of more than a few MB is
-copied into its staging buffer on several threads: the driver's and a
-small pool of its own, each copying its share without the GIL
-(`_fill`).
+event. The analysis of each batch shape on a card is captured in a CUDA
+graph after the shape's first batch, and every later batch of the shape
+replays it (`models.analyzer.analyze_replayed`). At most
+`in_flight_batches` buckets stay on the devices before their `[B, 23]`
+features are fetched. A batch of more than a few MB is copied into its
+staging buffer on several threads: the driver's and a small pool of its
+own, each copying its share without the GIL (`_fill`).
 
 Over a list of more than one entry, a song longer than `LONGSONG_SAMPLES`
 (20 minutes, the JAX driver's default bound) goes alone through the
@@ -42,9 +44,11 @@ import numpy as np
 import torch
 
 from ..errors import AnalysisError, BlissError, DecodingError
+from ..features import FeaturesVersion
 from ..models.analyzer import (
     MIN_SAMPLES,
     _resolve_dtype,
+    analyze_replayed,
     analyze_tensor,
     bucket_length,
     resolve_devices,
@@ -250,6 +254,7 @@ def analyze_paths_batched(
     """
     options = analysis_options or AnalysisOptions()
     version = int(options.features_version)
+    n_features = FeaturesVersion.from_int(version).feature_count
     devs = resolve_devices(devices, device)
     dtype = _resolve_dtype(devs[0], dtype)
     long_bound, long_shards = _longsong_route(longsong_samples, longsong_shards, len(devs))
@@ -303,13 +308,16 @@ def analyze_paths_batched(
         x = torch.from_numpy(host) if staging is None else staging[i].upload(slot, host_t)
         lens = torch.as_tensor(lengths, device=dev)
         sp.end()
-        sp = RECORDER.begin("analyze")
-        feats = analyze_tensor(x, lens, version, dtype)
-        sp.end()
         if staging is None:
+            sp = RECORDER.begin("analyze")
+            feats = analyze_tensor(x, lens, version, dtype)
+            sp.end()
             return entries, feats, None
-        out = torch.empty(feats.shape, dtype=feats.dtype, pin_memory=True)
-        out.copy_(feats, non_blocking=True)
+        out = torch.empty((b, n_features), dtype=torch.float32, pin_memory=True)
+        sp = RECORDER.begin("analyze")
+        how = analyze_replayed(x, lens, out, version, dtype)
+        if sp:
+            sp.end(graph=how)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(dev))
         return entries, out, done

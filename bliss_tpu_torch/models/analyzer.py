@@ -8,14 +8,24 @@ hand-written kernels; on the CPU (only when the caller passes
 stage at f64 by default for golden parity. Every entry point takes
 `routes` (`bliss_tpu_torch.routes.Routes`): which kernel carries each
 descriptor's transform; the default is the card's analysis path.
+
+The batch driver, which sees each bucket shape again and again, analyzes
+a batch on a card through `analyze_replayed`: one CUDA graph a shape,
+captured after the shape's first batch and replayed for every later one.
+The other entry points take their callers' one-off shapes and run
+eagerly.
 """
 
 from __future__ import annotations
+
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..errors import AnalysisError
+from ..ops import _build
 from ..routes import DEFAULT as DEFAULT_ROUTES
 from ..routes import Routes
 from ..tables import Tables, default_tables
@@ -100,15 +110,20 @@ def analyze_tensor(
     if not isinstance(routes, Routes):
         raise TypeError(f"routes: expected a Routes, got {type(routes).__name__}")
     dev = signal.device
-    t = signal.shape[-1]
     lengths = lengths.to(device=dev, dtype=torch.int64)
     # samples past each song's end read as zero, whatever the buffer held
     signal = torch.where(
-        torch.arange(t, device=dev) < lengths.unsqueeze(-1),
+        torch.arange(signal.shape[-1], device=dev) < lengths.unsqueeze(-1),
         signal.to(torch.float32),
         0.0,
     )
-    tab = (tables or default_tables()).on(dev)
+    return _analyze_masked(signal, lengths, version, dtype, tables, routes)
+
+
+def _analyze_masked(signal, lengths, version, dtype, tables, routes) -> torch.Tensor:
+    """`analyze_tensor` after its first step: `signal` f32 and zero past
+    each of the int64 `lengths`."""
+    tab = (tables or default_tables()).on(signal.device)
     # each stage's span is the host's enqueue of its work, not the card's
     sp = RECORDER.begin("analyze.tempo")
     tempo = tempo_model.tempo_feature(signal, lengths, tab, route=routes.tempo)
@@ -131,6 +146,115 @@ def analyze_tensor(
         [tempo.unsqueeze(-1), zcr.unsqueeze(-1), spectral, loud, chroma.to(torch.float32)],
         dim=-1,
     ).to(torch.float32)
+
+
+class _Captured(NamedTuple):
+    """One batch shape's analysis captured in a CUDA graph: the graph, its
+    static inputs (the masked samples, a view of the card's input buffer,
+    and the lengths), the features it writes and the launches one replay
+    makes."""
+
+    graph: torch.cuda.CUDAGraph
+    signal: torch.Tensor
+    lengths: torch.Tensor
+    features: torch.Tensor
+    launches: dict
+
+
+class _CardGraphs:
+    """The captured analyses of one card, by (B, T, version, dtype), on
+    the default routes. They share one graph memory pool, and each views
+    its static input from the start of the card's input buffer: every
+    write of an input, replay and copy of features runs in order on the
+    card's own `stream`, under `lock`, after the work its caller's stream
+    has queued and before what that stream queues next, whatever stream
+    each caller is on. A shape larger than the buffer takes a new one, of twice
+    the old size or the shape's, whichever is larger; the graphs captured
+    over the old buffer keep it, so the buffers held come to less than
+    twice the last, and no graph is captured twice."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lock = threading.Lock()
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.buffer = torch.empty(0, dtype=torch.float32, device=device)
+        # what the masked write compares and writes, outside the graphs
+        self.positions = torch.arange(0, device=device)
+        self.zero = torch.zeros((), device=device)
+        self.graphs: dict = {}
+
+    def _capture(self, key) -> _Captured:
+        b, t, version, dtype = key
+        signal = self.buffer[: b * t].view(b, t)
+        lengths = torch.full((b,), t, dtype=torch.int64, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's work on the card during the capture
+        # (an upload, a synchronizing copy) is not this graph's and may go on
+        with _build.counting_capture() as launches, torch.cuda.graph(
+            graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"
+        ):
+            features = _analyze_masked(signal, lengths, version, dtype, None, DEFAULT_ROUTES)
+        return _Captured(graph, signal, lengths, features, launches)
+
+    def add(self, key) -> None:
+        """Capture `key`'s analysis."""
+        need = key[0] * key[1]
+        if need > self.buffer.numel():
+            size = max(need, 2 * self.buffer.numel())
+            self.buffer = torch.empty(size, dtype=torch.float32, device=self.device)
+        if key[1] > self.positions.numel():
+            self.positions = torch.arange(key[1], device=self.device)
+        self.graphs[key] = self._capture(key)
+
+
+_CARD_GRAPHS: dict = {}
+_CARD_GRAPHS_LOCK = threading.Lock()
+
+
+def analyze_replayed(
+    signal: torch.Tensor,
+    lengths: torch.Tensor,
+    out: torch.Tensor,
+    version: int = 2,
+    dtype=torch.float32,
+) -> str:
+    """`analyze_tensor` of a `[B, T]` batch on a card, with the default
+    tables and routes, its features copied into `out` (e.g. pinned host
+    memory, an asynchronous copy, done before the caller's current stream
+    goes on). The first batch of a shape runs eagerly, then its analysis
+    is captured in a CUDA graph ("capture"); every later batch of that
+    shape is masked into the graph's static input and replays it
+    ("replay"), which returns the eager analysis's features bit for bit.
+    The graphs live for the process. Returns "capture" or "replay"."""
+    dev = signal.device
+    if dev.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a card, not {dev}")
+    with _CARD_GRAPHS_LOCK:
+        card = _CARD_GRAPHS.get(dev)
+        if card is None:
+            card = _CARD_GRAPHS[dev] = _CardGraphs(dev)
+    key = (*signal.shape, version, dtype)
+    with card.lock, torch.cuda.device(dev):
+        caller = torch.cuda.current_stream(dev)
+        card.stream.wait_stream(caller)
+        with torch.cuda.stream(card.stream):
+            g = card.graphs.get(key)
+            if g is None:
+                out.copy_(analyze_tensor(signal, lengths, version, dtype), non_blocking=True)
+                card.add(key)
+                how = "capture"
+            else:
+                t = signal.shape[1]
+                torch.where(card.positions[:t] < lengths.unsqueeze(-1),
+                            signal.to(torch.float32), card.zero, out=g.signal)
+                g.lengths.copy_(lengths)
+                g.graph.replay()
+                _build.add_launches(g.launches)
+                out.copy_(g.features, non_blocking=True)
+                how = "replay"
+        caller.wait_stream(card.stream)
+    return how
 
 
 def analyze_samples(

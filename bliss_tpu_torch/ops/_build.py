@@ -9,17 +9,22 @@ Every kernel wrapper launches through `launch`, which makes the tensors'
 device the current one around the call (the `<<<>>>` launch and the
 entries' attribute calls act on the calling thread's current device) and
 counts the launch, by kernel and by device, so a caller can reset the
-counts, drive the analysis and see which kernels ran where.
+counts, drive the analysis and see which kernels ran where. A launch made
+while a CUDA graph is captured runs only when the graph replays: inside
+`counting_capture` it is counted into the capture's own dict, which
+`add_launches` adds to the counts at each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
@@ -43,11 +48,38 @@ LAUNCHES_ON: dict[tuple[str, str], int] = {}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
+#: This thread's capture counts (`counting_capture`), else None.
+_capture = threading.local()
+
 
 def count_launch(name: str, device) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    counts = getattr(_capture, "counts", None)
     key = (name, str(device))
+    if counts is not None:
+        counts[key] = counts.get(key, 0) + 1
+        return
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     LAUNCHES_ON[key] = LAUNCHES_ON.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def counting_capture():
+    """Count this thread's launches in the block into the dict it yields,
+    by (kernel, device), and not into `LAUNCHES`: the block is a CUDA
+    graph's capture, whose launches run at each replay."""
+    prev, _capture.counts = getattr(_capture, "counts", None), {}
+    try:
+        yield _capture.counts
+    finally:
+        _capture.counts = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of one replay of a graph whose capture counted
+    `counts`."""
+    for (name, device), n in counts.items():
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+        LAUNCHES_ON[(name, device)] = LAUNCHES_ON.get((name, device), 0) + n
 
 
 def reset_launches() -> None:

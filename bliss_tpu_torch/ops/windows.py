@@ -79,16 +79,21 @@ def reflect_pad_signal(
     followed by zeros, `T + 2*(window//2) + window` samples long, so that
     frame `f` of the reference stft is `padded[b, f*hop : f*hop + window]`.
     Requires `window//2 <= length - 1` and zeros beyond each length.
+    Every row's right-hand reflection is one gather and one scatter, and no
+    length is read on the host: a card's work stays queued (and capturable
+    in a CUDA graph).
     """
     pad = window_length // 2
     b, t = signal.shape
     padded = signal.new_zeros((b, t + 2 * pad + window_length))
     padded[:, :pad] = signal[:, 1 : pad + 1].flip(-1)
     padded[:, pad : pad + t] = signal
-    for i, n in enumerate(torch.as_tensor(lengths).reshape(-1).tolist()):
-        start = max(n - 1 - pad, 0)
-        padded[i, pad + n : 2 * pad + n] = signal[i, start : start + pad].flip(-1)
-    return padded
+    n = torch.as_tensor(lengths, device=signal.device).to(torch.int64).reshape(-1, 1)
+    j = torch.arange(pad, device=signal.device)
+    # sample pad + n + j of the row is sample start + pad - 1 - j of the song
+    start = torch.clamp(n - 1 - pad, min=0)
+    tail = torch.gather(signal, 1, (start + (pad - 1) - j).expand(b, pad))
+    return padded.scatter_(1, (n + pad + j).expand(b, pad), tail)
 
 
 def frame_signal_reflect(

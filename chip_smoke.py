@@ -1458,16 +1458,17 @@ def files_phase(corpus: str, card: str) -> dict:
     threads_s = sum(decode_s.values())
     gpu1, one_worker_s = run(Recording, "cuda", workers=1)
     serial_s = sum(decode_s.values())
-    # the driver's groups: one analyze_tensor call each, with its device
-    # and rows; every kernel of the path launches once a group
+    # the driver's groups: one analyze_replayed call each (the shape's first
+    # eager, then its graph's replays), with its device and rows; every
+    # kernel of the path launches once a group
     groups = []
-    analyze_tensor = IB.analyze_tensor
+    analyze_replayed = IB.analyze_replayed
 
     def counted(x, *args, **kwargs):
         groups.append((str(x.device), x.shape[0]))
-        return analyze_tensor(x, *args, **kwargs)
+        return analyze_replayed(x, *args, **kwargs)
 
-    IB.analyze_tensor = counted
+    IB.analyze_replayed = counted
     try:
         _build.reset_launches()
         gpu2, without_s = run(Decoded, "cuda")
@@ -1480,7 +1481,7 @@ def files_phase(corpus: str, card: str) -> dict:
         two, two_s = run(Decoded, None, devices=[dev0, dev0], longsong_samples=10**9)
         listed = (list(groups), dict(_build.LAUNCHES_ON))
     finally:
-        IB.analyze_tensor = analyze_tensor
+        IB.analyze_replayed = analyze_replayed
     cpu, cpu_s = run(Decoded, "cpu")
     songs = sorted(k for k, r in gpu.items() if isinstance(r, Song))
     n_songs = len(songs)
