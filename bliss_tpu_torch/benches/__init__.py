@@ -15,8 +15,7 @@ the card's name and power limit (`card`, null off a card):
 `fixtures` encodes the headline's full-length mix. The benches decode
 with `FFmpegDecoder`, the native libav decoder, as the JAX ones do;
 `--decoder fallback` names the FFI-free `FallbackDecoder` instead, for a
-host without libav (`bench_decoder`). The other files
-here compare kernels or routes beside another checkout.
+host without libav (`bench_decoder`).
 """
 
 import json

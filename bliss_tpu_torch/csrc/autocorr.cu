@@ -346,32 +346,6 @@ block_inputs_kernel(const float* __restrict__ thresh, const long long* __restric
   }
 }
 
-// The autocorrelation alone (ops/tempo_kernels.py:autocorr), a block a row of
-// `df [rows, 512]`: the same device function as block_inputs_kernel's phase 2.
-__global__ void __launch_bounds__(kThreads)
-autocorr_kernel(const float* __restrict__ df, float* __restrict__ acf) {
-  __shared__ __align__(16) float s_row[kPad + kN];
-  __shared__ __align__(16) float s_acf[kN];
-  __shared__ int s_bad[2];
-  const int t = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * kN;
-  float* s = s_row + kPad;
-  int mine = kN;
-#pragma unroll
-  for (int m = kN / kThreads - 1; m >= 0; --m) {
-    const int slot = t + kThreads * m;
-    const float v = df[base + slot];
-    s[slot] = v;
-    if (!isfinite(v)) mine = slot;
-  }
-  if (t < kPad) s_row[t] = 0.0f;
-  const int bad = first_nonfinite(mine, s_bad);
-  row_autocorr(s, bad, s_acf);
-  __syncthreads();
-#pragma unroll
-  for (int m = 0; m < kN / kThreads; ++m) acf[base + t + kThreads * m] = s_acf[t + kThreads * m];
-}
-
 }  // namespace
 
 extern "C" int block_inputs_launch(const float* thresh, const long long* h_valid, int batch, int h,
@@ -386,12 +360,5 @@ extern "C" int block_inputs_launch(const float* thresh, const long long* h_valid
   const Outputs out{dfrev, comb_u3, comb_u4, gwv_if3, gwv_if4, rp_if3, rp_if4, ts_if3, ts_if4};
   block_inputs_kernel<<<static_cast<unsigned int>(rows), kThreads, 0, stream>>>(
       thresh, h_valid, h, n_blocks, rwv, dfwv, rayparam_trunc, g_var2, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int autocorr_launch(const float* df, float* acf, long long rows, cudaStream_t stream) {
-  if (rows <= 0) return 0;
-  if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  autocorr_kernel<<<static_cast<unsigned int>(rows), kThreads, 0, stream>>>(df, acf);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,8 +24,7 @@
 // shared-memory writes and the reads). Blocks past a song's `n_valid` leave
 // its state as it is: bp stays, no beat fires.
 //
-// The design of a step, against the probe's reading of the earlier one's
-// (benches/beat_track_step.py, -DBLISS_BT_PROBE):
+// The design of a step:
 //   - the inputs travel through a ring of kStages block slots in shared
 //     memory, filled kStages - 1 blocks ahead by cp.async (16 bytes a lane
 //     and copy, 8 copies a lane a block): no registers hold the next block
@@ -81,7 +80,6 @@
 // blocks of 5 minutes are 7.4 MB, 2.2 us at 3.35 TB/s. The chain of block
 // steps is sequential, so the kernel stays far above that bound: its time is
 // the latency of one step times the number of blocks of the longest song.
-// The bench's latency floor counts that step's dependent chain.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -154,33 +152,6 @@ __device__ __forceinline__ void issue_block(const Inputs& in, long long row, flo
   }
 }
 
-// The step probe (benches/beat_track_step.py builds this source with
-// -DBLISS_BT_PROBE): clock64() stamps between the parts of a block step,
-// summed a part over a song's steps and written by lane 0 to `probe`
-// [B, kProbeParts + 1] (the last column: the whole kernel's cycles). Before
-// each stamp a volatile shared-memory store takes a value the part produced:
-// a warp issues in order, so the stamp waits until that value is there.
-// Without the define the marks are empty.
-constexpr int kProbeParts = 10;
-#ifdef BLISS_BT_PROBE
-__device__ __forceinline__ long long probe_clock() {
-  long long t;
-  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
-  return t;
-}
-#define PROBE_MARK(part, dep)                                   \
-  do {                                                          \
-    probe_sink[lane] = __float_as_int(static_cast<float>(dep)); \
-    const long long probe_now = probe_clock();                  \
-    probe_acc[part] += probe_now - probe_t;                     \
-    probe_t = probe_now;                                        \
-  } while (0)
-#else
-#define PROBE_MARK(part, dep) \
-  do {                        \
-  } while (0)
-#endif
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
@@ -242,16 +213,10 @@ __device__ __forceinline__ bool fast_quotient_range(float a, float b) {
 __global__ void __launch_bounds__(32)
 beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
                   float* __restrict__ bp_out, float* __restrict__ beats_out,
-                  unsigned char* __restrict__ fired_out, long long* __restrict__ probe) {
+                  unsigned char* __restrict__ fired_out) {
   __shared__ __align__(16) float s_ring[kStages * kSlot];
   __shared__ float s_acf[kLag];
   __shared__ float s_ph[kPhaseI + 1];  // the weighted phout head and phout[160] = 0
-#ifdef BLISS_BT_PROBE
-  __shared__ volatile int probe_sink[32];
-  long long probe_acc[kProbeParts] = {};
-  const long long probe_start = probe_clock();
-  long long probe_t = probe_start;
-#endif
 
   const int lane = threadIdx.x;
   const long long row0 = static_cast<long long>(blockIdx.x) * n_blocks;
@@ -281,11 +246,9 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
     const int ahead = k + kStages - 1;
     if (ahead < nv) issue_block(in, row0 + ahead, s_ring + (ahead % kStages) * kSlot, lane);
     bliss::cp_async_commit();
-    PROBE_MARK(0, ahead);
     bliss::cp_async_wait<kStages - 1>();
     __syncwarp();
     const float* blk = s_ring + (k % kStages) * kSlot;
-    PROBE_MARK(1, blk[lane]);
 
     // ---- checkstate (src/aubio.rs:1096-1227)
     const bool sel3 = timesig == 3;
@@ -306,7 +269,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
     const int acf_max = (__any_sync(kFull, nan) || !(m >= 0.0f)) ? 0 : at_max;
     const float gp_cand = quad_peak_pos(s_acf, acf_max, kLag);
     const float gp_new = gp > 0.0f ? gp_cand : 0.0f;
-    PROBE_MARK(2, gp_new);
 
     const bool at_zero = counter == 0;
     const bool step_change = fabsf(__fsub_rn(gp_new, rp)) > 2.0f * kGVar;
@@ -317,7 +279,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
         fabsf(__fsub_rn(__fsub_rn(__fmul_rn(2.0f, rp), rp1), rp2)) < kGVar;
     const bool flagconst = check && consistent;
     counter = check ? (consistent ? 0 : 2) : (counter > 0 ? counter - 1 : counter);
-    PROBE_MARK(3, counter + (flagconst ? 1 : 0));
 
     // the phase weights' numerators and the reciprocal of their common
     // denominator; the quotients and exponentials run beside the phase sum
@@ -335,7 +296,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
     }
     fast = __all_sync(kFull, fast);
     const float den_rcp = __frcp_rn(den);
-    PROBE_MARK(4, den_rcp);
 
     float bp_new = flagconst ? rp : (use_ctx ? gp_new : rp);
     if (flagconst) {
@@ -352,7 +312,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
       bp_new = __fmul_rn(bp_new, 2.0f);
     }
     bp = bp_new;
-    PROBE_MARK(5, bp);
 
     // ---- beat phase (src/aubio.rs:1017-1091)
     float vals[kMaxBeats];
@@ -407,7 +366,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
 #pragma unroll
       for (int r = 0; r < kHeadLane; ++r) s_ph[lane + 32 * r] = ph[r];
       __syncwarp();
-      PROBE_MARK(6, ph[kHeadLane - 1]);
       // the head's maximum; entries 160..255 are 0 unless NaN, the other 256 are 0
       float head[kHeadLane];
 #pragma unroll
@@ -418,7 +376,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
       float phase = ph_max >= kWin - 1 ? __fsub_rn(static_cast<float>(kStep), lastbeat)
                                        : quad_peak_pos(s_ph, ph_max, kWin);
       phase = __fadd_rn(phase, 1.0f);
-      PROBE_MARK(7, phase);
 
       float beat = __fsub_rn(bp, phase);
       const bool skip = __fsub_rn(__fsub_rn(static_cast<float>(kStep), lastbeat), phase) <
@@ -428,7 +385,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
       for (int n = 0; n < kCatchUp && __fadd_rn(beat, bp) < 0.0f; ++n) {
         beat = __fadd_rn(beat, bp);
       }
-      PROBE_MARK(8, beat);
       // emit: the first beat if beat >= 0, then while beat + bp <= step
       vals[0] = beat;
       fires[0] = beat >= 0.0f;
@@ -459,7 +415,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
     }
     if (lane == 0) bp_out[out_row] = bp;
     __syncwarp();  // this step's shared-memory reads before the next one's writes
-    PROBE_MARK(9, my_val);
   }
   bliss::cp_async_wait<0>();
 
@@ -470,14 +425,6 @@ beat_track_kernel(Inputs in, const int* __restrict__ n_valid, int n_blocks,
     fired_out[row0 * kMaxBeats + i] = 0;
   }
   for (int k = nv + lane; k < n_blocks; k += 32) bp_out[row0 + k] = bp;
-#ifdef BLISS_BT_PROBE
-  if (lane == 0) {
-    long long* mine = probe + static_cast<long long>(blockIdx.x) * (kProbeParts + 1);
-#pragma unroll
-    for (int q = 0; q < kProbeParts; ++q) mine[q] = probe_acc[q];
-    mine[kProbeParts] = probe_clock() - probe_start;
-  }
-#endif
 }
 
 }  // namespace
@@ -492,79 +439,6 @@ extern "C" int beat_track_launch(const float* dfrev, const float* comb_u3,
   if (batch <= 0 || n_blocks <= 0) return 0;
   const Inputs in{dfrev, comb_u3, comb_u4, gwv_if3, gwv_if4,
                   rp_if3, rp_if4, ts_if3, ts_if4};
-  beat_track_kernel<<<batch, 32, 0, stream>>>(in, n_valid, n_blocks, bp, beats, fired, nullptr);
+  beat_track_kernel<<<batch, 32, 0, stream>>>(in, n_valid, n_blocks, bp, beats, fired);
   return static_cast<int>(cudaGetLastError());
 }
-
-#ifdef BLISS_BT_PROBE
-// The latency of the dependent operations a step chains: one warp runs
-// `reps` x 16 repetitions of one kind, each taking the last one's result, and
-// writes its value to `out` (so nothing is folded away); the caller times the
-// launch. Kinds: 0 a warp shuffle, 1 __fadd_rn, 2 a shared-memory load, 3
-// __fdiv_rn, 4 expf, 5 a ballot, 6 the phase sum's offset round(bp k) (int to
-// float, __fmul_rn, __fadd_rn, floor, float to int), 7 div_rn_by.
-template <int kKind>
-__global__ void __launch_bounds__(32) latency_kernel(const float* __restrict__ seed, int reps,
-                                                     float* __restrict__ out) {
-  __shared__ int s_chase[32];
-  const int lane = threadIdx.x;
-  s_chase[lane] = static_cast<int>(seed[64 + lane]);  // the lane's own index
-  __syncwarp();
-  const float y = seed[lane];  // 1 + 2^-20
-  const float y_rcp = __frcp_rn(y);
-  float x = seed[32 + lane];
-  int i = s_chase[lane];
-  unsigned int b = static_cast<unsigned int>(i);
-  for (int n = 0; n < reps; ++n) {
-#pragma unroll
-    for (int u = 0; u < 16; ++u) {
-      if constexpr (kKind == 0) x = __shfl_xor_sync(kFull, x, 1);
-      if constexpr (kKind == 1) x = __fadd_rn(x, y);
-      if constexpr (kKind == 2) i = s_chase[i];
-      if constexpr (kKind == 3) x = __fdiv_rn(x, y);
-      if constexpr (kKind == 4) x = expf(-x);
-      if constexpr (kKind == 5) b = __ballot_sync(kFull, (b >> lane) & 1u) + lane;
-      if constexpr (kKind == 6) {
-        i = static_cast<int>(floorf(__fadd_rn(__fmul_rn(static_cast<float>(i), y), 0.5f)));
-      }
-      if constexpr (kKind == 7) x = div_rn_by(x, y, y_rcp);
-    }
-  }
-  out[lane] = x + static_cast<float>(i) + static_cast<float>(b);
-}
-
-extern "C" int beat_track_latency_launch(const float* seed, int kind, int reps, float* out,
-                                         cudaStream_t stream) {
-  switch (kind) {
-    case 0: latency_kernel<0><<<1, 32, 0, stream>>>(seed, reps, out); break;
-    case 1: latency_kernel<1><<<1, 32, 0, stream>>>(seed, reps, out); break;
-    case 2: latency_kernel<2><<<1, 32, 0, stream>>>(seed, reps, out); break;
-    case 3: latency_kernel<3><<<1, 32, 0, stream>>>(seed, reps, out); break;
-    case 4: latency_kernel<4><<<1, 32, 0, stream>>>(seed, reps, out); break;
-    case 5: latency_kernel<5><<<1, 32, 0, stream>>>(seed, reps, out); break;
-    case 6: latency_kernel<6><<<1, 32, 0, stream>>>(seed, reps, out); break;
-    case 7: latency_kernel<7><<<1, 32, 0, stream>>>(seed, reps, out); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The probe's parts a step, the columns of `probe` but its last.
-extern "C" int beat_track_probe_parts() { return kProbeParts; }
-
-// beat_track_launch with the step probe's cycles `probe` [batch, kProbeParts + 1].
-extern "C" int beat_track_probe_launch(const float* dfrev, const float* comb_u3,
-                                       const float* comb_u4, const float* gwv_if3,
-                                       const float* gwv_if4, const float* rp_if3,
-                                       const float* rp_if4, const int* ts_if3,
-                                       const int* ts_if4, const int* n_valid, int batch,
-                                       int n_blocks, float* bp, float* beats,
-                                       unsigned char* fired, long long* probe,
-                                       cudaStream_t stream) {
-  if (batch <= 0 || n_blocks <= 0) return 0;
-  const Inputs in{dfrev, comb_u3, comb_u4, gwv_if3, gwv_if4,
-                  rp_if3, rp_if4, ts_if3, ts_if4};
-  beat_track_kernel<<<batch, 32, 0, stream>>>(in, n_valid, n_blocks, bp, beats, fired, probe);
-  return static_cast<int>(cudaGetLastError());
-}
-#endif

@@ -50,106 +50,21 @@
 // this one; pass 1 runs in place in its frame's buffer (thread tid reads and
 // writes only the slots 256*i + tid). Three block barriers a frame, 98 KB of
 // shared memory, 2 blocks an SM. The only device-memory write is the frame's
-// 4097 magnitudes. Widths below 8192 (on no path) keep the block-wide radix-2
-// FFT of the first design (ct_mags_kernel).
+// 4097 magnitudes. W = 8192 is the only width: the analysis and the
+// long-song route take no other.
 #include <cstdint>
 
 #include "fft_common.cuh"
 
-// Compile-time switches of ct8192_kernel, for measuring where its time goes
-// (benches/ct_fft_variants.py builds one library per setting; the package
-// builds the defaults). BLISS_CT_FFT_DESIGN: 0 the 16 x 16 x 16 block FFT,
-// 1 the 256 x 16 design (warp_fft256 on each stride-16 subsequence, then
-// radix 16 across warps; loads not overlapped), 2 the radix-2 kernel at 8192
-// too. BLISS_CT_FFT_PROBE (design 0): 0 the kernel, 1 the transform without its
-// output stores, 2 staging and stores without the transform, 3 the transform
-// and stores without loads (2 and 3 give wrong output).
-#ifndef BLISS_CT_FFT_DESIGN
-#define BLISS_CT_FFT_DESIGN 0
-#endif
-#ifndef BLISS_CT_FFT_PROBE
-#define BLISS_CT_FFT_PROBE 0
-#endif
-
 namespace {
-
-// ---------------------------------------------------------------------------
-// Any power-of-two width up to 8192: a block-wide radix-2 FFT in shared memory
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxHalf = 4096;  // complex points: windows up to 8192
-constexpr int kThreads = 512;
-
-// kPreFramed: `src` is [n_frames, W] and blockIdx.y is 0; else `src` is the
-// padded signal [batch, t_len] and frame f starts at f*hop.
-template <bool kPreFramed>
-__global__ void __launch_bounds__(kThreads)
-ct_mags_kernel(const float* __restrict__ src, long long t_len, int n_frames,
-               int hop, int log2w, const float* __restrict__ win,
-               const float* __restrict__ tw_re, const float* __restrict__ tw_im,
-               float* __restrict__ out) {
-  __shared__ float re[kMaxHalf];
-  __shared__ float im[kMaxHalf];
-
-  const int w = 1 << log2w;
-  const int m = w >> 1;
-  const int log2m = log2w - 1;
-  const int f = blockIdx.x;
-  const long long first =
-      static_cast<long long>(f) * (kPreFramed ? w : hop);
-  const float* xs = src + static_cast<long long>(blockIdx.y) * t_len + first;
-  const long long avail = kPreFramed ? w : t_len - first;
-
-  for (int n = threadIdx.x; n < w; n += kThreads) {
-    const float v = n < avail ? xs[n] * win[n] : 0.0f;
-    const int r = bliss::bit_reverse(n >> 1, log2m);
-    if (n & 1) {
-      im[r] = v;
-    } else {
-      re[r] = v;
-    }
-  }
-  __syncthreads();
-  // complex FFT of m points: W_m^j == W_w^(2j), hence the table scale of 2
-  bliss::fft_radix2_dit(re, im, log2m, tw_re, tw_im, 2);
-
-  float* o = out + (static_cast<long long>(blockIdx.y) * n_frames + f) *
-                       static_cast<long long>(m + 1);
-  for (int k = threadIdx.x; k <= m; k += kThreads) {
-    const int a = k & (m - 1);        // k == m wraps to Z[0]
-    const int b = (m - k) & (m - 1);  // conj partner Z[m - k]
-    const float ar = re[a], ai = im[a], br = re[b], bi = im[b];
-    // even and odd half-spectra: E = (Z[k] + conj Z[m-k]) / 2,
-    // O = (Z[k] - conj Z[m-k]) / 2i; X[k] = E + W_w^k O
-    const float er = 0.5f * (ar + br);
-    const float ei = 0.5f * (ai - bi);
-    const float or_ = 0.5f * (ai + bi);
-    const float oi = -0.5f * (ar - br);
-    const float wr = tw_re[k];
-    const float wi = tw_im[k];
-    const float xr = er + (wr * or_ - wi * oi);
-    const float xi = ei + (wr * oi + wi * or_);
-    o[k] = sqrtf(xr * xr + xi * xi);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// W = 8192: 4096 complex points, 16 per thread
-// ---------------------------------------------------------------------------
 
 constexpr int kW = 8192;
 constexpr int kBins = kW / 2 + 1;
 constexpr int kFftThreads = 256;
 constexpr int kRow = 17;  // float2 stride of a row of the last exchange
 constexpr int kLastSlots = 256 * kRow;
-#if BLISS_CT_FFT_DESIGN == 1
-constexpr int kStageSlots = 4096 + 256;  // m + (m >> 4): a pad every 16 points
-constexpr int kSmemSlots =
-    kStageSlots + kLastSlots + (kFftThreads / 32) * bliss::kWarpFftScratch / 2;
-#else
 // two frames' samples (pass 1 runs in place in its frame's), the last exchange
 constexpr int kSmemSlots = kW + kLastSlots;
-#endif
 constexpr int kSmemBytes = kSmemSlots * static_cast<int>(sizeof(float2));
 
 // Where a frame lies: `xs` its first sample, `avail` how many samples of it
@@ -214,25 +129,6 @@ __device__ __forceinline__ float2 window_pair(const float* __restrict__ win,
   return make_float2(__ldg(win + 2 * m), __ldg(win + 2 * m + 1));
 }
 
-// Windowed complex point z[m] = x[2m] w[2m] + i x[2m+1] w[2m+1] of a frame,
-// by 8-byte loads where `vec` (frame and window 8-byte aligned, no sample
-// past the end); design 1 loads its frames so.
-__device__ __forceinline__ void load_point(const Frame& fr,
-                                           const float* __restrict__ win,
-                                           int m, bool vec, float& re,
-                                           float& im) {
-  if (vec) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(fr.xs) + m);
-    const float2 w = __ldg(reinterpret_cast<const float2*>(win) + m);
-    re = v.x * w.x;
-    im = v.y * w.y;
-  } else {
-    const int n = 2 * m;
-    re = n < fr.avail ? __ldg(fr.xs + n) * __ldg(win + n) : 0.0f;
-    im = n + 1 < fr.avail ? __ldg(fr.xs + n + 1) * __ldg(win + n + 1) : 0.0f;
-  }
-}
-
 // The bin row q (of the 256 of the last pass) that thread `tid` takes: warp w
 // holds q = 16w + l in lanes l < 16 and its mirror 256 - q in lane l + 16;
 // warp 0 pairs q = 0 with q = 128, each its own mirror.
@@ -257,10 +153,10 @@ struct UntangleTwiddles {
   }
 };
 
-// The last pass, shared by both designs: row q reads its 16 values over the
-// last index from `last` (row stride kRow), transforms them into
-// Z[q + 256*k3], untangles against the mirror bins and writes |X[q + 256*k3]|
-// (and |X[4096]| from row 0) to the frame's output row `o`.
+// The last pass: row q reads its 16 values over the last index from `last`
+// (row stride kRow), transforms them into Z[q + 256*k3], untangles against
+// the mirror bins and writes |X[q + 256*k3]| (and |X[4096]| from row 0) to
+// the frame's output row `o`.
 __device__ __forceinline__ void last_pass(const float2* last, int q,
                                           const UntangleTwiddles& tw,
                                           float* __restrict__ o) {
@@ -293,23 +189,13 @@ __device__ __forceinline__ void last_pass(const float2* last, int q,
     const float wi = k3 < 8 ? tw.im[k3] : -tw.re[k3 - 8];
     const float yr = er + (wr * pr - wi * pi);
     const float yi = ei + (wr * pi + wi * pr);
-    const float mag = sqrtf(yr * yr + yi * yi);
-#if BLISS_CT_FFT_PROBE == 1
-    if (mag == -1.0f) o[q + 256 * k3] = mag;  // never true
-#else
-    o[q + 256 * k3] = mag;
-#endif
+    o[q + 256 * k3] = sqrtf(yr * yr + yi * yi);
   }
   if (q == 0) {
-#if BLISS_CT_FFT_PROBE == 1
-    if (re[0] == im[0] + 1e30f) o[kW / 2] = 0.0f;  // never true
-#else
     o[kW / 2] = fabsf(re[0] - im[0]);
-#endif
   }
 }
 
-#if BLISS_CT_FFT_DESIGN != 1
 // Per-thread twiddles of the first two passes.
 struct BlockFftTwiddles {
   float a_re[16], a_im[16];  // pass 1: W_256^(n2*k1), tid = 16*n2 + n3
@@ -326,30 +212,6 @@ struct BlockFftTwiddles {
     }
   }
 };
-#else
-// Per-thread twiddles of the 256 x 16 design: the warp core's, and the turns
-// W_4096^(n2*k1) of the two subsequences n2 = warp, warp + 8 at the bins
-// k1 = lane + 32*r the core leaves in the lane.
-struct SplitFftTwiddles {
-  bliss::WarpFft256Twiddles core;
-  float x_re[2][8], x_im[2][8];
-
-  __device__ __forceinline__ void load(const float* __restrict__ tw_re,
-                                       const float* __restrict__ tw_im,
-                                       int tid) {
-    const int warp = tid >> 5, lane = tid & 31;
-    core.load<kW>(tw_re, tw_im, lane);
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        bliss::twiddle<kW>(tw_re, tw_im, 2 * (warp + 8 * s) * (lane + 32 * r),
-                           x_re[s][r], x_im[s][r]);
-      }
-    }
-  }
-};
-#endif
 
 // |rDFT| of 8192-point frames, one frame a block at a time: frame g of
 // batch * n_frames (g = b * n_frames + f) for g = blockIdx.x, + gridDim.x, ...
@@ -365,7 +227,6 @@ ct8192_kernel(const float* __restrict__ src, long long t_len, int n_frames,
   const bool win_vec = (reinterpret_cast<uintptr_t>(win) & 7) == 0;
   UntangleTwiddles utw;
   utw.load(tw_re, tw_im, q);
-#if BLISS_CT_FFT_DESIGN != 1
   // two frames' buffers of samples, taken in turns: frame g is staged two
   // frames ahead into the buffer frame g - 2*gridDim.x has left, and pass 1
   // runs in place in it (thread tid reads and writes the slots 256*i + tid)
@@ -374,12 +235,10 @@ ct8192_kernel(const float* __restrict__ src, long long t_len, int n_frames,
   tw.load(tw_re, tw_im, tid);
   // copy frame h into buffer b (one commit group a call, empty past the end)
   auto stage_next = [&](long long h, int b) {
-#if BLISS_CT_FFT_PROBE != 3
     if (h < total) {
       stage_frame(reinterpret_cast<float*>(smem + b * (kW / 2)),
                   frame_at<kPreFramed>(src, t_len, n_frames, hop, h), tid);
     }
-#endif
     bliss::cp_async_commit();
   };
   stage_next(blockIdx.x, 0);
@@ -392,14 +251,6 @@ ct8192_kernel(const float* __restrict__ src, long long t_len, int n_frames,
     const long long after_next = g + 2 * static_cast<long long>(gridDim.x);
     // thread (n2, n3) = tid takes the points z[256*n1 + tid]
     float re[16], im[16];
-#if BLISS_CT_FFT_PROBE == 3
-    // the transform and stores alone: points made up from g and tid
-#pragma unroll
-    for (int n1 = 0; n1 < 16; ++n1) {
-      re[n1] = static_cast<float>((g & 7) + n1) + 1e-3f * tid;
-      im[n1] = 1e-3f * n1 - static_cast<float>(g & 3);
-    }
-#else
     bliss::cp_async_wait<1>();  // frame g's group; the next frame's may pend
     __syncthreads();            // frame g is staged
 #pragma unroll
@@ -410,15 +261,6 @@ ct8192_kernel(const float* __restrict__ src, long long t_len, int n_frames,
       re[n1] = v.x * w.x;
       im[n1] = v.y * w.y;
     }
-#endif
-#if BLISS_CT_FFT_PROBE == 2
-    // staging and stores alone: |z[tid + 256*i]| to bins tid + 256*i
-    __syncthreads();  // every thread has read the buffer
-    stage_next(after_next, b);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) o[tid + 256 * i] = sqrtf(re[i] * re[i] + im[i] * im[i]);
-    if (tid == 0) o[kW / 2] = 0.0f;
-#else
     // pass 1: transform over n1, turn by W_256^(n2*k1), in place
     bliss::dft16(re, im);
 #pragma unroll
@@ -448,74 +290,16 @@ ct8192_kernel(const float* __restrict__ src, long long t_len, int n_frames,
     stage_next(after_next, b);
     // pass 3: row q = k1 + 16*k2 transforms over n3
     last_pass(last, q, utw, o);
-#endif
   }
-#else
-  const int lane = tid & 31;
-  float2* stage = smem;                       // z[m] at m + (m >> 4)
-  float2* last = smem + kStageSlots;          // [q][n2], rows of kRow
-  float* scratch = reinterpret_cast<float*>(last + kLastSlots) +
-                   (tid >> 5) * bliss::kWarpFftScratch;
-  SplitFftTwiddles tw;
-  tw.load(tw_re, tw_im, tid);
-
-  for (long long g = blockIdx.x; g < total; g += gridDim.x) {
-    const Frame fr = frame_at<kPreFramed>(src, t_len, n_frames, hop, g);
-    const bool vec = win_vec && fr.avail >= kW &&
-                     (reinterpret_cast<uintptr_t>(fr.xs) & 7) == 0;
-    float* o = out + g * kBins;
-    // stage the windowed frame, then warp w transforms the subsequences
-    // z[16*n1 + n2], n2 = w and w + 8, by the warp core and turns them
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int m = tid + 256 * i;
-      float re, im;
-      load_point(fr, win, m, vec, re, im);
-      stage[m + (m >> 4)] = make_float2(re, im);
-    }
-    __syncthreads();  // the frame is staged; the last frame's last pass is done
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int n2 = (tid >> 5) + 8 * s;
-      float re[8], im[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int m = 16 * (lane + 32 * j) + n2;
-        const float2 v = stage[m + (m >> 4)];
-        re[j] = v.x;
-        im[j] = v.y;
-      }
-      bliss::warp_fft256(re, im, scratch, tw.core, lane);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        bliss::turn(re[r], im[r], tw.x_re[s][r], tw.x_im[s][r]);
-        last[(lane + 32 * r) * kRow + n2] = make_float2(re[r], im[r]);
-      }
-    }
-    __syncthreads();  // every subsequence is in place; the stage is read
-    // radix 16 across the subsequences: row q = k1 transforms over n2
-    last_pass(last, q, utw, o);
-  }
-#endif
 }
 
-// The launch of either entry: the radix-2 kernel below 8192 (and at 8192 in
-// design 2), else the 8192-point body with as many blocks as the card holds
-// at once, each walking a strided run of the batch * n_frames frames.
+// The launch of either entry: as many blocks as the card holds at once, each
+// walking a strided run of the batch * n_frames frames.
 template <bool kPreFramed>
 int launch(const float* src, int batch, long long t_len, int n_frames, int hop,
-           int log2w, const float* win, const float* tw_re,
-           const float* tw_im, float* out, cudaStream_t stream) {
+           const float* win, const float* tw_re, const float* tw_im, float* out,
+           cudaStream_t stream) {
   if (n_frames <= 0 || batch <= 0) return 0;
-  if (log2w < 2 || (1 << (log2w - 1)) > kMaxHalf) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (log2w < 13 || BLISS_CT_FFT_DESIGN == 2) {
-    const dim3 grid(n_frames, batch);
-    ct_mags_kernel<kPreFramed><<<grid, kThreads, 0, stream>>>(
-        src, t_len, n_frames, hop, log2w, win, tw_re, tw_im, out);
-    return static_cast<int>(cudaGetLastError());
-  }
   auto kernel = ct8192_kernel<kPreFramed>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -539,18 +323,17 @@ int launch(const float* src, int batch, long long t_len, int n_frames, int hop,
 }  // namespace
 
 extern "C" int ct_stft_launch(const float* padded, int batch, long long t_len,
-                              int n_frames, int hop, int log2w,
-                              const float* win, const float* tw_re,
-                              const float* tw_im, float* out,
-                              cudaStream_t stream) {
-  return launch<false>(padded, batch, t_len, n_frames, hop, log2w, win, tw_re,
-                       tw_im, out, stream);
+                              int n_frames, int hop, const float* win,
+                              const float* tw_re, const float* tw_im,
+                              float* out, cudaStream_t stream) {
+  return launch<false>(padded, batch, t_len, n_frames, hop, win, tw_re, tw_im,
+                       out, stream);
 }
 
-extern "C" int ct_frames_launch(const float* frames, int n_frames, int log2w,
+extern "C" int ct_frames_launch(const float* frames, int n_frames,
                                 const float* win, const float* tw_re,
                                 const float* tw_im, float* out,
                                 cudaStream_t stream) {
-  return launch<true>(frames, 1, 0, n_frames, 0, log2w, win, tw_re, tw_im, out,
+  return launch<true>(frames, 1, 0, n_frames, 0, win, tw_re, tw_im, out,
                       stream);
 }

@@ -1,9 +1,8 @@
-// The FFT bodies of the DFT kernels of this directory: a block-wide
-// shared-memory radix-2 FFT of any power-of-two length (fft_radix2_dit), and
-// the same arithmetic at 512 points on one warp (warp_radix2_512_mags); a
-// 256-point complex FFT carried by one warp in registers (warp_fft256), and
-// the 512-point real FFT built on it (warp_rfft512_mags); the register
-// butterflies dft4, dft8, dft16, which ct_stft.cu's 8192-point body uses too.
+// The FFT bodies of the DFT kernels of this directory: a 512-point radix-2
+// FFT of real input on one warp (warp_radix2_512_mags); a 256-point complex
+// FFT carried by one warp in registers (warp_fft256), and the 512-point real
+// FFT built on it (warp_rfft512_mags); the register butterflies dft4, dft8,
+// dft16, which ct_stft.cu's 8192-point body uses too.
 //
 // Twiddle tables are built on the host in f64 from the INTEGER phase k
 // (tw_re[k] = cos(2*pi*k/N), tw_im[k] = -sin(2*pi*k/N), k in [0, N/2]) and
@@ -13,10 +12,6 @@
 #include <cuda_runtime.h>
 
 namespace bliss {
-
-__device__ __forceinline__ int bit_reverse(int v, int bits) {
-  return static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - bits));
-}
 
 // Asynchronous copy of kBytes (4, 8 or 16; both addresses aligned to it)
 // from device memory to shared memory; 16-byte copies bypass L1.
@@ -46,39 +41,6 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// In-place radix-2 decimation-in-time FFT of n = 2^log2n complex points held
-// in shared memory (re, im). On entry the input sits in bit-reversed order,
-// on exit X[k] sits in natural order. The table holds W_N^k for
-// N = n * tw_scale; every thread of the block must call this, after a
-// __syncthreads() that publishes the input. Ends with a __syncthreads().
-__device__ __forceinline__ void fft_radix2_dit(float* re, float* im, int log2n,
-                                               const float* __restrict__ tw_re,
-                                               const float* __restrict__ tw_im,
-                                               int tw_scale) {
-  const int half_n = 1 << (log2n - 1);
-  for (int s = 1; s <= log2n; ++s) {
-    const int half = 1 << (s - 1);
-    // W_{2*half}^pos == W_N^(pos * N / (2*half))
-    const int stride = (half_n >> (s - 1)) * tw_scale;
-    for (int t = threadIdx.x; t < half_n; t += blockDim.x) {
-      const int pos = t & (half - 1);
-      const int i = ((t >> (s - 1)) << s) | pos;
-      const int j = i + half;
-      const float wr = tw_re[pos * stride];
-      const float wi = tw_im[pos * stride];
-      const float jr = re[j], ji = im[j];
-      const float xr = jr * wr - ji * wi;
-      const float xi = jr * wi + ji * wr;
-      const float ir = re[i], ii = im[i];
-      re[j] = ir - xr;
-      im[j] = ii - xi;
-      re[i] = ir + xr;
-      im[i] = ii + xi;
-    }
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -342,17 +304,17 @@ __device__ __forceinline__ void warp_rfft512_mags(
 }
 
 // ---------------------------------------------------------------------------
-// One warp, one 512-point FFT of real input by fft_radix2_dit's arithmetic.
+// One warp, one 512-point FFT of real input by radix-2 decimation in time.
 //
-// The same butterflies, twiddles and stage order as fft_radix2_dit at n = 512
-// (a complex transform of the windowed frame with zero imaginary part, input
-// in bit-reversed order, nine decimation-in-time stages), so a frame's
-// magnitudes round as that body's do; only the schedule is a warp's: lane q
-// holds points 16 q + r of stages 1-4 in register r, a transpose through
-// padded shared memory (a slot of padding every 16 points) gives lane
-// (a, h) = a + 16 h the points a + 16 r + 256 h of stages 5-8, and stage 9
-// pairs lane a with lane a + 16 by shuffles, each lane forming 8 of the 256
-// bins below the Nyquist bin. __syncwarp() orders the shared memory, no
+// It keeps the arithmetic of the block-wide shared-memory radix-2 FFT that
+// came first (a complex transform of the windowed frame with zero imaginary
+// part, input in bit-reversed order, nine stages, each butterfly
+// i + w j, i - w j), so a frame's magnitudes round as that body's did; only
+// the schedule is a warp's: lane q holds points 16 q + r of stages 1-4 in
+// register r, a transpose through padded shared memory (a slot of padding
+// every 16 points) gives lane (a, h) = a + 16 h the points a + 16 r + 256 h
+// of stages 5-8, and stage 9 pairs lane a with lane a + 16 by shuffles, each
+// lane forming 8 of the 256 bins below the Nyquist bin. __syncwarp() orders the shared memory, no
 // block-wide barrier is taken.
 // ---------------------------------------------------------------------------
 
@@ -382,7 +344,7 @@ __host__ __device__ constexpr int rev4(int r) {
   return ((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | ((r & 8) >> 3);
 }
 
-// fft_radix2_dit's butterfly on (i, j) with the twiddle w
+// The radix-2 butterfly on (i, j) with the twiddle w
 __device__ __forceinline__ void radix2_butterfly(float& ir, float& ii, float& jr, float& ji,
                                                  float2 w) {
   const float xr = jr * w.x - ji * w.y;
@@ -431,7 +393,7 @@ __device__ __forceinline__ void warp_radix2_512_mags(const float* sig,
   float re[16], im[16];
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    // rounded, as fft_radix2_dit's input is stored
+    // rounded, as a transform of the f32 windowed frame rounds it
     re[r] = __fmul_rn(sig[radix2_sample(lane, r)], c.win[r]);
     im[r] = 0.0f;
   }

@@ -38,13 +38,7 @@ struct MagsEpilogue {
   __device__ __forceinline__ void frame(int f, int, float (&mag)[8], float nyq, int lane) {
     float* o = out + static_cast<long long>(f) * kBins;
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-#if BLISS_FRAME_FFT_PROBE == 3
-      o[lane + 32 * r] = mag[r];
-#else
-      __stcs(o + lane + 32 * r, mag[r]);
-#endif
-    }
+    for (int r = 0; r < 8; ++r) __stcs(o + lane + 32 * r, mag[r]);
     if (lane == 0) __stcs(o + kWin / 2, nyq);
   }
 

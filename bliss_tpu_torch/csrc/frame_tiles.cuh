@@ -14,7 +14,8 @@
 //
 // The transform is a body: Rfft512Body (warp_rfft512_mags, 8 x 8 x 4 over 256
 // complex points and the real-input untangling) or Radix2Body
-// (warp_radix2_512_mags, fft_radix2_dit's arithmetic on a warp's schedule).
+// (warp_radix2_512_mags, a block-wide radix-2 FFT's arithmetic on a warp's
+// schedule).
 //
 // An epilogue is a struct with
 //   using Body = ...;                // the transform
@@ -25,28 +26,9 @@
 //       frame f, the i-th of this warp's tile; lane q holds |X[q + 32 r]| in
 //       mag[r], lane 0's nyq is |X[256]|; every lane of the warp calls it
 //   void tile_done(int warp, int lane);  // after the tile's closing barrier
-//
-// Compile-time switches, for measuring where the time goes
-// (benches/frame_fft_variants.py builds one library per setting; the
-// package builds the defaults): BLISS_FRAME_FFT_PROBE 0 the kernel, 1 the
-// transform without the epilogue, 2 staging and the epilogue without the
-// transform (wrong output), 3 frame_dft_mags with ordinary stores instead of
-// streaming ones, 4 staging alone; BLISS_FRAME_FFT_TILE frames a tile (a
-// multiple of 8); BLISS_FRAME_FFT_WAVES the waves of resident blocks the
-// launch aims at.
 #pragma once
 
 #include "fft_common.cuh"
-
-#ifndef BLISS_FRAME_FFT_TILE
-#define BLISS_FRAME_FFT_TILE 32
-#endif
-#ifndef BLISS_FRAME_FFT_WAVES
-#define BLISS_FRAME_FFT_WAVES 4
-#endif
-#ifndef BLISS_FRAME_FFT_PROBE
-#define BLISS_FRAME_FFT_PROBE 0
-#endif
 
 namespace bliss {
 
@@ -54,9 +36,10 @@ constexpr int kTileWin = 512;
 constexpr int kTileBins = kTileWin / 2 + 1;
 constexpr int kTileThreads = 256;
 constexpr int kTileWarps = kTileThreads / 32;
-constexpr int kTileFrames = BLISS_FRAME_FFT_TILE;
+constexpr int kTileFrames = 32;
 constexpr int kWarpFrames = kTileFrames / kTileWarps;
 constexpr int kTileMaxHop = 256;
+constexpr int kTileWaves = 4;  // waves of resident blocks a launch aims at
 static_assert(kTileFrames % kTileWarps == 0, "a tile is a whole run a warp");
 
 // floats of one staging buffer: the span of a tile's frames and of the
@@ -82,10 +65,10 @@ struct Rfft512Body {
   }
 };
 
-// fft_radix2_dit's arithmetic on a warp: the window at a lane's samples and
-// the twiddles of stages 1-4 in registers, those of stages 5-9 in a shared
-// table, stage by stage, that the block fills once a run (published by the
-// first tile's barrier).
+// A block-wide radix-2 FFT's arithmetic on a warp: the window at a lane's
+// samples and the twiddles of stages 1-4 in registers, those of stages 5-9
+// in a shared table, stage by stage, that the block fills once a run
+// (published by the first tile's barrier).
 struct Radix2Body {
   static constexpr int kTableFloats = 2 * kRadix2StageTwiddles;
   static constexpr int kScratchFloats = kWarpRadix2Scratch;
@@ -190,21 +173,8 @@ __device__ __forceinline__ void frame_tiles(const float* __restrict__ x, long lo
       if (f >= n_frames) break;
       const float* sig = cur + (j + kLookback) * hop;
       float mag[8], nyq;
-#if BLISS_FRAME_FFT_PROBE == 2 || BLISS_FRAME_FFT_PROBE == 4
-#pragma unroll
-      for (int r = 0; r < 8; ++r) mag[r] = sig[lane + 32 * r] * wins[lane + 32 * r];
-      nyq = mag[0];
-#else
       body.mags(sig, wins, scratch, lane, mag, nyq);
-#endif
-#if BLISS_FRAME_FFT_PROBE == 1 || BLISS_FRAME_FFT_PROBE == 4
-      bool never = nyq == -1.0f;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) never |= mag[r] == -1.0f;
-      if (never) ep.frame(f, i, mag, nyq, lane);
-#else
       ep.frame(f, i, mag, nyq, lane);
-#endif
     }
     __syncthreads();  // every warp is done with tile t's buffer
     ep.tile_done(warp, lane);
@@ -213,8 +183,8 @@ __device__ __forceinline__ void frame_tiles(const float* __restrict__ x, long lo
 
 // The launch of a frame_tiles kernel for `batch` songs of n_frames frames:
 // a block walks a run of tiles, long enough to amortise its twiddle loads
-// and to overlap staging with transforms, short enough for ~4 waves of the
-// 2 blocks an SM holds.
+// and to overlap staging with transforms, short enough for kTileWaves waves
+// of the 2 blocks an SM holds.
 template <class Kernel>
 cudaError_t frame_tiles_launch_shape(Kernel* kernel, int smem_bytes, int batch,
                                      int n_frames, dim3* grid, int* tiles_per_block) {
@@ -227,7 +197,7 @@ cudaError_t frame_tiles_launch_shape(Kernel* kernel, int smem_bytes, int batch,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int n_tiles = (n_frames + kTileFrames - 1) / kTileFrames;
-  const long long want_blocks = static_cast<long long>(sms) * 2 * BLISS_FRAME_FFT_WAVES;
+  const long long want_blocks = static_cast<long long>(sms) * 2 * kTileWaves;
   const long long all_tiles = static_cast<long long>(n_tiles) * batch;
   int run = static_cast<int>((all_tiles + want_blocks - 1) / want_blocks);
   if (run < 1) run = 1;

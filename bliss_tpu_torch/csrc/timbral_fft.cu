@@ -18,11 +18,11 @@
 // rounding of that one bin. The 8 x 8 x 4 body of warp_rfft512_mags, nearer
 // exact arithmetic there than cuFFT, crossed that limit on one frame of a
 // 60-minute synthetic song on an H100 (1.02e-4; it sat 2.2e-5 from an f64
-// FFT of the same f32 windowed frame, cuFFT 1.24e-4), while fft_radix2_dit's
-// arithmetic stays within it on every frame measured. So the spectrum is
-// that arithmetic on a warp's schedule (warp_radix2_512_mags: the same
-// butterflies, integer-phase twiddles and stage order, the windowed samples
-// rounded to f32 first, no matmul DFT).
+// FFT of the same f32 windowed frame, cuFFT 1.24e-4), while a block-wide
+// radix-2 FFT's arithmetic stays within it on every frame measured. So the
+// spectrum is that arithmetic on a warp's schedule (warp_radix2_512_mags:
+// the same butterflies, integer-phase twiddles and stage order, the windowed
+// samples rounded to f32 first, no matmul DFT).
 //
 // Bound on the card: operations, with bytes close behind. The signal is read
 // once (4 bytes a sample, each shared by four overlapping frames) and 20

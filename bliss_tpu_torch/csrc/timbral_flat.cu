@@ -32,9 +32,9 @@
 // and four running sums fit only at 32): one accumulator a chunk at
 // m64n64 ran in 3.24 ms where this runs in 4.4. The limit that decides it
 // is ops/dft_kernels.py's FLAT_GEO_EXCESS, 2e-7 over the plain version's
-// mean distance; built with -DBLISS_FLAT_PRODUCTS=3 (hh, hm, mh only: bf16x3)
-// this kernel is the control that limit must refuse
-// (benches/flat_dft.py).
+// mean distance. Three products (hh, hm, mh only: bf16x3) break it, so a
+// k step takes all six (tests/test_torch_flat_dft.py holds a numpy copy of
+// both against that limit).
 //
 // Design:
 // - One twiddle block for the four chunks. W^((128c + n) k) = (-i)^(ck)
@@ -68,11 +68,6 @@
 #include <cstdint>
 
 #include "timbral_rows.cuh"
-
-#ifndef BLISS_FLAT_PRODUCTS
-#define BLISS_FLAT_PRODUCTS 6
-#endif
-static_assert(BLISS_FLAT_PRODUCTS == 6 || BLISS_FLAT_PRODUCTS == 3, "six products, or the bf16x3 control");
 
 namespace {
 
@@ -240,11 +235,9 @@ __device__ __forceinline__ void six_products(float (&d)[16], const APieces& a,
   const uint32_t b = stage + ks * 1024;  // two 8-k core columns a step
   const uint64_t bh = b_desc(b), bm = b_desc(b + kPieceBytes),
                  bl = b_desc(b + 2 * kPieceBytes);
-  if (BLISS_FLAT_PRODUCTS == 6) {
-    wgmma_rs(d, a.mid, bm);
-    wgmma_rs(d, a.lo, bh);
-    wgmma_rs(d, a.hi, bl);
-  }
+  wgmma_rs(d, a.mid, bm);
+  wgmma_rs(d, a.lo, bh);
+  wgmma_rs(d, a.hi, bl);
   wgmma_rs(d, a.mid, bh);
   wgmma_rs(d, a.hi, bm);
   wgmma_rs(d, a.hi, bh);

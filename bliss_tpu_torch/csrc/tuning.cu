@@ -43,7 +43,7 @@
 //       buckets (a song's keys share a few exponent bytes) are counted
 //       warp-aggregated: the lanes of one bucket add once (__match_any_sync).
 //
-// 3. bisect8 and bisect8_keys replace
+// 3. bisect8_keys replaces
 //    bliss_tpu/ops/pallas_select.py:39 _make_bisect8_kernel
 //    (via _bisect8 and masked_quantile_midpoint_radix): one level of a
 //    4-level byte radix select over the u32 sort keys of f32 values. Over
@@ -55,11 +55,9 @@
 //    fallback and never counted in `below`. The TPU's eight bisection passes
 //    over a VMEM plane become one counting pass: a 256-bucket per-song
 //    histogram in shared memory, then a one-block scan.
-//    The counting pass is a template on its loader. The int8-plane loader
-//    (bisect8) reads the plane the TPU kernel reads: the key byte offset by
-//    -128, sentinel 127, formed by the caller. That plane exists to fit the
-//    TPU's VMEM; the card has no such limit, so the key loader (bisect8_keys)
-//    forms its own: it reads the bool mask and, only where it holds, the f32
+//    The TPU kernel reads an int8 plane of key bytes that the caller forms
+//    to fit its VMEM; the card has no such limit, so the counting pass forms
+//    the keys itself: it reads the bool mask and, only where it holds, the f32
 //    value, makes the sort key, tests the key's higher bytes against the
 //    prefix found so far and counts this level's byte, for the floor and the
 //    ceil rank of the midpoint quantile in one pass (two histograms, two
@@ -80,13 +78,12 @@
 // writes 5 bytes a peak; tuning_select reads the list (5 bytes a peak)
 // and writes ~450 bytes a song; the old planes' 9 bytes for each of the
 // band's elements, and their eager temporaries, are gone. The other
-// planes are read once (1 byte per element for bisect8, 1 of mask plus 4
-// per valid element for bisect8_keys, 4 for hist_int); the value reads are
-// skipped for excluded elements. The byte streams of bisect8 and
-// bisect8_keys are read as aligned 16-byte vectors, and a vector that holds
-// only excluded elements costs one compare. The 256-bucket and 128-counter
-// histograms stay in shared memory. Excluded elements (most of every plane:
-// ~0.5% of the tuning band are peaks) skip every atomic.
+// planes are read once (1 byte of mask plus 4 per valid element for
+// bisect8_keys, 4 for hist_int); the value reads are skipped for excluded
+// elements. bisect8_keys reads the mask as aligned 16-byte vectors, and a
+// vector that holds only excluded elements costs one compare. The 256-bucket
+// and 128-counter histograms stay in shared memory. Excluded elements (most
+// of every plane: ~0.5% of the tuning band are peaks) skip every atomic.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -442,34 +439,16 @@ tuning_select_kernel(const int* __restrict__ keys,
   }
 }
 
-// ---- the byte-radix counting pass, a template on its loader ---------------
+// ---- the byte-radix counting pass -----------------------------------------
 //
-// A loader names the byte stream [B, n] the pass walks (`stream`), says
-// whether a 4-byte word of it holds only excluded elements (`empty`), and
-// counts one element (`visit`) into `kRanks` 256-bucket histograms; with
-// `kCountsValid` the pass also counts the valid elements into one more slot.
-
-// The int8 plane of one key byte per element, offset by -128; 127 is excluded.
-struct PlaneLoader {
-  static constexpr int kRanks = 1;
-  static constexpr bool kCountsValid = false;
-  const unsigned char* stream;
-
-  __device__ void bind(int, long long) {}
-  __device__ static bool empty(unsigned int w) { return w == 0x7F7F7F7Fu; }
-  __device__ void visit(unsigned int byte, long long, unsigned int* counts,
-                        unsigned int&) const {
-    const unsigned int u = byte ^ 0x80u;  // the int8 value + 128
-    if (u != 255u) atomicAdd(&counts[u], 1u);
-  }
-};
-
-// The bool mask and, where it holds, the f32 value: the sort key's byte at
-// `level`, counted for each rank whose prefix equals the key's higher bytes.
+// The loader walks the bool mask [B, n] (`stream`), says whether a 4-byte
+// word of it holds only excluded elements (`empty`), and counts one element
+// (`visit`): where the mask holds, the sort key's byte of the f32 value at
+// `level`, for each rank whose prefix equals the key's higher bytes, into
+// `kRanks` 256-bucket histograms, and the valid elements into one more slot.
 // state: [B, 5] i64 = [prefix_floor, prefix_ceil, rank_floor, rank_ceil, n].
 struct KeyLoader {
   static constexpr int kRanks = 2;
-  static constexpr bool kCountsValid = true;
   const unsigned char* stream;  // the mask
   const float* values;
   const long long* state;
@@ -508,18 +487,17 @@ struct KeyLoader {
 };
 
 // hist: [B, hist_stride] u32, zeroed by the caller: kRanks x 256 buckets,
-// then (kCountsValid) the count of valid elements.
-template <class Loader>
+// then the count of valid elements.
 __global__ void __launch_bounds__(kHistThreads)
-count8_kernel(Loader loader, long long n, unsigned int* __restrict__ hist,
+count8_kernel(KeyLoader loader, long long n, unsigned int* __restrict__ hist,
               int hist_stride) {
-  constexpr int kSlots = Loader::kRanks * 256 + (Loader::kCountsValid ? 1 : 0);
+  constexpr int kSlots = KeyLoader::kRanks * 256 + 1;
   __shared__ unsigned int counts[kSlots];
   for (int i = threadIdx.x; i < kSlots; i += blockDim.x) counts[i] = 0;
   __syncthreads();
 
   const int song = blockIdx.y;
-  Loader ld = loader;
+  KeyLoader ld = loader;
   ld.bind(song, n);
   const unsigned char* bytes = ld.stream + static_cast<long long>(song) * n;
   // bytes before the first 16-byte boundary, whole vectors, bytes after
@@ -536,7 +514,7 @@ count8_kernel(Loader loader, long long n, unsigned int* __restrict__ hist,
     const unsigned int w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if (Loader::empty(w[j])) continue;
+      if (KeyLoader::empty(w[j])) continue;
       const long long at = lead + (c << 4) + 4 * j;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -553,50 +531,17 @@ count8_kernel(Loader loader, long long n, unsigned int* __restrict__ hist,
       ld.visit(bytes[i], i, counts, valid);
     }
   }
-  if (Loader::kCountsValid) {
-    for (int o = 16; o > 0; o >>= 1) {
-      valid += __shfl_xor_sync(0xffffffffu, valid, o);
-    }
-    if ((threadIdx.x & 31) == 0 && valid != 0) {
-      atomicAdd(&counts[kSlots - 1], valid);
-    }
+  for (int o = 16; o > 0; o >>= 1) {
+    valid += __shfl_xor_sync(0xffffffffu, valid, o);
+  }
+  if ((threadIdx.x & 31) == 0 && valid != 0) {
+    atomicAdd(&counts[kSlots - 1], valid);
   }
   __syncthreads();
   unsigned int* h = hist + static_cast<long long>(song) * hist_stride;
   for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
     if (counts[i] != 0) atomicAdd(&h[i], counts[i]);
   }
-}
-
-// One 256-thread block per song: thread v holds count(v); an inclusive scan
-// gives count(<= v); the bucket is the first v <= 0xFE reaching k + 1.
-__global__ void __launch_bounds__(256)
-select8_kernel(const unsigned int* __restrict__ hist,
-               const int* __restrict__ ks, int* __restrict__ out) {
-  __shared__ unsigned long long warp_tot[8];
-  __shared__ int bucket;
-  const int v = threadIdx.x;
-  const int lane = v & 31;
-  const int warp = v >> 5;
-  const unsigned long long c = hist[static_cast<long long>(blockIdx.x) * 256 + v];
-  unsigned long long incl = c;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) warp_tot[warp] = incl;
-  if (v == 0) bucket = 255;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) incl += warp_tot[w];
-  const unsigned long long target =
-      static_cast<unsigned long long>(ks[blockIdx.x]) + 1ull;
-  // count(<= v) grows with v, so the first v reaching the target is unique
-  if (v < 255 && incl >= target && incl - c < target) bucket = v;
-  __syncthreads();
-  // below = count(<= bucket - 1), held by thread bucket - 1
-  if (bucket == 0 && v == 0) out[2 * blockIdx.x + 1] = 0;
-  if (v == bucket - 1) out[2 * blockIdx.x + 1] = static_cast<int>(incl);
-  if (v == 0) out[2 * blockIdx.x] = bucket;
 }
 
 constexpr int kKeyHistStride = 513;  // 2 x 256 buckets, then the valid count
@@ -769,24 +714,6 @@ extern "C" int tuning_select_launch(const int* keys, const unsigned char* bins,
   return static_cast<int>(cudaGetLastError());
 }
 
-// hist: [batch, 256] u32, zeroed by the caller; ks: [batch];
-// out: [batch, 2] = [bucket, below].
-extern "C" int bisect8_launch(const signed char* plane, int batch, long long n,
-                              const int* ks, unsigned int* hist, int* out,
-                              cudaStream_t stream) {
-  if (batch <= 0) return 0;
-  if (n > 0) {
-    const PlaneLoader loader{reinterpret_cast<const unsigned char*>(plane)};
-    count8_kernel<PlaneLoader>
-        <<<dim3(count_grid(n), batch), kHistThreads, 0, stream>>>(loader, n,
-                                                                  hist, 256);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-  }
-  select8_kernel<<<batch, 256, 0, stream>>>(hist, ks, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // One level (0-3) of the radix select over values [batch, n] f32 where
 // mask [batch, n] (bool bytes) holds, for both ranks of the midpoint quantile
 // q. state: [batch, 5] i64 (see KeyLoader), read above level 0 and advanced;
@@ -802,8 +729,7 @@ extern "C" int bisect8_keys_launch(const float* values,
   if (level < 0 || level > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     KeyLoader loader{mask, values, state, level, nullptr, {0u, 0u}};
-    count8_kernel<KeyLoader>
-        <<<dim3(count_grid(n), batch), kHistThreads, 0, stream>>>(
+    count8_kernel<<<dim3(count_grid(n), batch), kHistThreads, 0, stream>>>(
             loader, n, hist, kKeyHistStride);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;

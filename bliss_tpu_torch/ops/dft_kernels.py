@@ -9,9 +9,9 @@ Six kernels, each with its plain PyTorch version in this module:
 - `ct_stft_mags` (csrc/ct_stft.cu): STFT magnitudes framed in-kernel from
   the reflect-padded signal, replacing `_make_ct_fused_kernel`;
 - `ct_frames_mags` (csrc/ct_stft.cu): the same transform over pre-framed
-  `[N, W]` input, replacing `_make_ct_kernel` (at W = 8192 both run one
-  block FFT of 16 x 16 x 16 over the 4096 complex points, `ct8192_kernel`;
-  other widths a block-wide radix-2 FFT);
+  `[N, W]` input, replacing `_make_ct_kernel` (both run one block FFT of
+  16 x 16 x 16 over the 4096 complex points of W = 8192, `ct8192_kernel`,
+  the only width on the card);
 - `frame_dft_mags` (csrc/frame_dft.cu): DFT magnitudes of the 512-sample
   strided frames of a signal by a warp-level FFT, replacing `_make_kernel`;
 - `timbral_flat` (csrc/timbral_flat.cu): the timbral reductions of a
@@ -46,6 +46,7 @@ TEMPO_WINDOW, TEMPO_HOP, TEMPO_OFFSET = 512, 256, 256
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FRAME_ARGS = [_P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P]
+_CT_ARGS = [_P, _I, _L, _I, _I, _P, _P, _P, _P, _P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,9 +225,9 @@ def ct_stft_mags(
 ) -> torch.Tensor:
     """|STFT| of `padded [B, Tp]`: frame f is `padded[:, f*hop : f*hop + W]`
     times the Hann window. Returns `[B, W//2+1, n_frames]`, a transposed
-    view of frame-major storage. On the card an f32 FFT: at W = 8192 a
-    16 x 16 x 16 block FFT (csrc/ct_stft.cu `ct8192_kernel`), any other
-    width a block-wide radix-2 FFT."""
+    view of frame-major storage. On the card an f32 FFT of W = 8192 only,
+    a 16 x 16 x 16 block FFT (csrc/ct_stft.cu `ct8192_kernel`); the plain
+    version takes any width."""
     log2w = window_length.bit_length() - 1
     if window_length != 1 << log2w or not 4 <= window_length <= 8192:
         raise ValueError(f"window {window_length}: a power of two in [4, 8192]")
@@ -235,6 +236,8 @@ def ct_stft_mags(
     window, twiddle = _resolve(padded, window_length, window, twiddle)
     if not _build.on_cuda(padded):
         return ct_stft_mags_plain(padded, window_length, hop, n_frames, window)
+    if window_length != 8192:
+        raise ValueError(f"window {window_length}: the card's kernel takes 8192 only")
     dev = padded.device
     _build.require("padded", padded, torch.float32, 2, dev)
     _build.require("window", window, torch.float32, 1, dev)
@@ -245,11 +248,11 @@ def ct_stft_mags(
     out = torch.empty(
         (padded.shape[0], n_frames, n_bins), dtype=torch.float32, device=dev
     )
+    fn = _build.function("ct_stft", "ct_stft_launch", _CT_ARGS)
     _build.launch(
-        "ct_stft", _build.function("ct_stft", "ct_stft_launch", _FRAME_ARGS), dev,
-        _build.ptr(padded), padded.shape[0], padded.shape[1], n_frames, hop,
-        log2w, _build.ptr(window), _build.ptr(twiddle[0]),
-        _build.ptr(twiddle[1]), _build.ptr(out),
+        "ct_stft", fn, dev, _build.ptr(padded), padded.shape[0], padded.shape[1], n_frames,
+        hop, _build.ptr(window), _build.ptr(twiddle[0]), _build.ptr(twiddle[1]),
+        _build.ptr(out),
     )
     return out.transpose(1, 2)
 
@@ -268,8 +271,8 @@ def ct_frames_mags(
     twiddle: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """|rDFT| of the Hann-windowed rows of pre-framed `frames [N, W]`, W a
-    power of two in [4, 8192]. Returns `[W//2+1, N]`, a transposed view of
-    frame-major storage, as `ct_stft_mags` does."""
+    power of two in [4, 8192], on the card 8192 only. Returns `[W//2+1, N]`,
+    a transposed view of frame-major storage, as `ct_stft_mags` does."""
     if frames.dim() != 2:
         raise ValueError(f"frames: expected [N, W], got shape {tuple(frames.shape)}")
     n, window_length = frames.shape
@@ -279,6 +282,8 @@ def ct_frames_mags(
     window, twiddle = _resolve(frames, window_length, window, twiddle)
     if not _build.on_cuda(frames):
         return ct_frames_mags_plain(frames, window)
+    if window_length != 8192:
+        raise ValueError(f"window {window_length}: the card's kernel takes 8192 only")
     dev = frames.device
     _build.require("frames", frames, torch.float32, 2, dev)
     _build.require("window", window, torch.float32, 1, dev)
@@ -287,9 +292,9 @@ def ct_frames_mags(
     if window.shape[0] != window_length or twiddle.shape != (2, n_bins):
         raise ValueError("window/twiddle size does not match the frame width")
     out = torch.empty((n, n_bins), dtype=torch.float32, device=dev)
-    fn = _build.function("ct_stft", "ct_frames_launch", [_P, _I, _I, _P, _P, _P, _P, _P])
+    fn = _build.function("ct_stft", "ct_frames_launch", [_P, _I, _P, _P, _P, _P, _P])
     _build.launch(
-        "ct_frames", fn, dev, _build.ptr(frames), n, log2w, _build.ptr(window),
+        "ct_frames", fn, dev, _build.ptr(frames), n, _build.ptr(window),
         _build.ptr(twiddle[0]), _build.ptr(twiddle[1]), _build.ptr(out),
     )
     return out.transpose(0, 1)
@@ -434,9 +439,9 @@ def geo_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 #: DFT), so it is held to `timbral_flat_f64`: averaged over the frames, the
 #: per-frame geometric-mean distance at most 2e-7 above the plain version's;
 #: on the worst frame within 1e-5 or no farther than the plain version's
-#: worst. On 8 x 5-min noise songs (H100, benches/flat_dft.py) the kernel
-#: reads 1.0e-7 above the plain version, its bf16x3 control 5.6e-7 and one
-#: accumulator a chunk 6.3e-7.
+#: worst. On 8 x 5-min noise songs (H100) the kernel reads 1.0e-7 above the
+#: plain version, its bf16x3 control 5.6e-7 and one accumulator a chunk
+#: 6.3e-7.
 FLAT_REL, FLAT_BELOW, FLAT_GEO_EXCESS, FLAT_GEO_WORST = 1e-5, 1, 2e-7, 1e-5
 
 

@@ -10,9 +10,8 @@ launch of csrc/autocorr.cu (a block a row), on a CPU tensor
 the order XLA's CPU backend compiles the JAX package's matmul into, and its
 other sums run left to right from 0 as XLA's reduce adds, so the port's
 block inputs equal the JAX package's bit for bit (the Gaussian weights'
-`exp` within an ulp). `autocorr` is that autocorrelation alone, the same
-device function's second entry point (`autocorr_plain` on a CPU tensor):
-no path calls it; it shows where a difference starts.
+`exp` within an ulp). `autocorr_plain` is that autocorrelation alone: it
+shows where a difference starts.
 
 `beat_track` walks every block of every song through the sequential state
 machine: on a CUDA tensor one launch of csrc/beat_track.cu (a warp a song,
@@ -121,25 +120,6 @@ def autocorr_plain(df: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     bad = (~torch.isfinite(df)).to(torch.int32)
     past_bad = (torch.cumsum(bad, -1) - bad) > 0
     return torch.where(past_bad, float("nan"), acf)
-
-
-def autocorr(df: torch.Tensor) -> torch.Tensor:
-    """`autocorr_plain`'s function over `[..., 512]`: one launch of
-    csrc/autocorr.cu's `autocorr_launch` on a CUDA f32 tensor (a block a
-    row, `block_inputs`' own autocorrelation), the plain version on a CPU
-    tensor. On no path: `block_inputs` holds it."""
-    if not _build.on_cuda(df):
-        return autocorr_plain(df)
-    _build.require("autocorr", df, torch.float32, df.dim(), df.device)
-    if df.dim() < 1 or df.shape[-1] != WINLEN:
-        raise ValueError(f"autocorr: expected rows of {WINLEN}, got shape {tuple(df.shape)}")
-    acf = torch.empty_like(df)
-    rows = df.numel() // WINLEN
-    if rows == 0:
-        return acf
-    fn = _build.function("autocorr", "autocorr_launch", [_P, _P, ctypes.c_longlong, _P])
-    _build.launch("autocorr", fn, df.device, _build.ptr(df), _build.ptr(acf), rows)
-    return acf
 
 
 def _sum_left_to_right(vals: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,9 @@ for bit what the TPU contracts of `bisect16_pair` (run twice) and
 (`models/chroma.py:tuning_planes`, `level2_plane`, `threshold_key`, and
 `bisect16_pair_plain` and `histogram_threshold_plane_plain` here). The
 unfused route's byte-radix select (`masked_quantile_midpoint_radix`, four
-launches of `bisect8_keys`; `bisect8` is the same counting pass over a
-ready-made int8 plane) and `histogram_int_plane`. All kernels live in
-csrc/tuning.cu and count exact integers. Each wrapper runs its kernel on
+launches of `bisect8_keys`; `bisect8_plain` is the TPU contract of one
+level over a ready-made int8 plane) and `histogram_int_plane`. All kernels
+live in csrc/tuning.cu and count exact integers. Each wrapper runs its kernel on
 CUDA tensors and its plain version on CPU tensors. The plain versions of
 the fused route's two sit here too, with the stencil and the tuning bin
 they compute (`pip_stencil`, `tuning_bins`); the caller gives the band.
@@ -287,38 +287,17 @@ def tuning_select(
 
 
 def bisect8_plain(plane: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Plain version of `bisect8`."""
-    bucket, below = _counting_select(plane, k.reshape(-1, 1), 256)
-    return torch.cat([bucket, below], dim=1).to(torch.int32)
-
-
-def bisect8(plane: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Exact k-th-smallest byte bucket over an int8 plane `[B, ...]` (key
-    bytes offset by -128; 127, byte 0xFF, marks an excluded element).
+    """The TPU contract of `bisect8` (pallas_select.py:39): the exact
+    k-th-smallest byte bucket over an int8 plane `[B, ...]` (key bytes
+    offset by -128; 127, byte 0xFF, marks an excluded element).
 
     `k` is `[B]` int32. Returns `[B, 2]` int32 `[bucket, below]`: the first
     byte v <= 0xFE with count(<= v) >= k + 1, else 0xFF, and the number of
-    elements in lower buckets; bit for bit the TPU kernel's sentinel rule
-    (pallas_select.py:17-24): a valid byte 0xFF is reached only as the 0xFF
-    fallback and never counted.
+    elements in lower buckets; a valid byte 0xFF is reached only as the 0xFF
+    fallback and never counted (pallas_select.py:17-24).
     """
-    if not _build.on_cuda(plane):
-        return bisect8_plain(plane, k)
-    dev = plane.device
-    b = plane.shape[0]
-    flat = plane.reshape(b, -1)
-    _build.require("plane", flat, torch.int8, 2, dev)
-    _build.require("k", k, torch.int32, 1, dev)
-    if k.shape[0] != b:
-        raise ValueError(f"k: expected shape ({b},), got {tuple(k.shape)}")
-    hist = torch.zeros((b, 256), dtype=torch.int32, device=dev)
-    out = torch.empty((b, 2), dtype=torch.int32, device=dev)
-    fn = _build.function("tuning", "bisect8_launch", [_P, _I, _L, _P, _P, _P, _P])
-    _build.launch(
-        "bisect8", fn, dev, _build.ptr(flat), b, flat.shape[1], _build.ptr(k), _build.ptr(hist),
-        _build.ptr(out),
-    )
-    return out
+    bucket, below = _counting_select(plane, k.reshape(-1, 1), 256)
+    return torch.cat([bucket, below], dim=1).to(torch.int32)
 
 
 def histogram_int_plane_plain(idx: torch.Tensor, n_bins: int) -> torch.Tensor:

@@ -4,18 +4,18 @@ JAX package's `lax.scan` over `_bt_do`, and the tempo feature of the port's
 against `bliss_tpu`'s, on the CPU, over thresholded series made with numpy
 from fixed seeds.
 
-The block inputs' autocorrelation (`ops/tempo_kernels.autocorr`) equals the
-JAX package's `_autocorr` bit for bit, and so does every block input of
-`block_inputs_plain` but the two Gaussian weight vectors, whose `exp` is
-XLA's on one side and PyTorch's on the other (within an ulp), on the cases'
-series and on edge series (non-finite values, silence, a comb peak at lag 1,
+The block inputs' autocorrelation (`ops/tempo_kernels.autocorr_plain`)
+equals the JAX package's `_autocorr` bit for bit, and so does every block
+input of `block_inputs_plain` but the two Gaussian weight vectors, whose
+`exp` is XLA's on one side and PyTorch's on the other (within an ulp), on
+the cases' series and on edge series (non-finite values, silence, a comb peak at lag 1,
 a period past 85 hops, overflow). The state machine is held on the
 block inputs of the JAX package's own `_precompute_blocks`, so both sides
 walk the same inputs: the beat period after each block exact, the firing
 flags exact, the beats within 1e-5 (the JAX package sums the beat phase as
 a selection-matrix product, in XLA's order; the port adds the 21 lags left
 to right). The tempo feature is held exact. The tests marked `cuda` hold
-the three kernels against their plain versions bit for bit on the card,
+the two kernels against their plain versions bit for bit on the card,
 and the plain Gaussian weights against numpy's quotient, and skip without
 one; this module imports JAX only inside its JAX comparisons, so they run
 there with `python3 -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -244,7 +244,7 @@ def test_autocorr_matches_jax(rows):
         df[6, 401] = -np.inf  # inf - inf inside the sums
     else:
         df = _gaussian_rows(11, rows == "rectified")
-    got = TK.autocorr(df)
+    got = TK.autocorr_plain(df)
     want = np.asarray(jax.vmap(JT._autocorr)(jnp.asarray(df.numpy())))
     assert got.dtype == torch.float32 and got.shape == df.shape
     nan = np.isnan(got.numpy()) & np.isnan(want)
@@ -275,7 +275,7 @@ def test_autocorr_plain_rounds_each_step_once():
     lags = [0, 1, 200, 511]
     want = [[sum(df[r, j - i].item() * df[r, j].item() for j in range(i, 512)) / (512 - i)
              for i in lags] for r in range(2)]
-    got = TK.autocorr(df)
+    got = TK.autocorr_plain(df)
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got[:, lags].numpy(), want, rtol=1e-12, atol=1e-15)
 
@@ -352,7 +352,7 @@ def test_block_inputs_plain_matches_jax_on_edges(name):
     if name == "long period":
         assert bool((rp >= 85.0).any())
     if name == "signed":  # negative totals at the edge lag 127: c1 there is -0
-        acf = TK.autocorr(TK.block_rows(_t(thresh), _t(h_valid)))
+        acf = TK.autocorr_plain(TK.block_rows(_t(thresh), _t(h_valid)))
         assert bool((acf[..., 127] < 0).any())
 
 
@@ -456,40 +456,6 @@ def cuda():
 
 def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "case", ["zeros", "one nonzero", "inf and NaN", "subnormal", "overflow", "gaussian", "blocks"]
-)
-def test_cuda_autocorr_matches_plain(cuda, case):
-    """The autocorrelation kernel against its plain version on the card,
-    bit for bit (a NaN beside a NaN): chip_smoke.py's edge rows, and the
-    block rows of every case in their `[B, NB, 512]` layout; one launch;
-    what the kernel does not take raises."""
-    from chip_smoke import autocorr_edge_rows, same_floats
-
-    if case == "blocks":
-        rows = torch.cat([_block_rows(name) for name in CASES]).to(cuda).reshape(2, 173, 512)
-    else:
-        rows = autocorr_edge_rows(cuda)[case]
-    _build.reset_launches()
-    got = TK.autocorr(rows)
-    assert _build.LAUNCHES == {"autocorr": 1}
-    want = TK.autocorr_plain(rows)
-    torch.cuda.synchronize()
-    assert same_floats(got, want)
-    if case == "inf and NaN":  # every lag past a row's first inf or NaN is NaN
-        bad = ~torch.isfinite(rows)
-        first = torch.where(bad.any(-1), bad.to(torch.int8).argmax(-1), rows.shape[-1])
-        past = torch.arange(rows.shape[-1], device=cuda) > first.unsqueeze(-1)
-        assert bool(torch.isnan(got[past]).all()) and bool(past.any())
-    with pytest.raises(ValueError):
-        TK.autocorr(rows[..., :256])
-    with pytest.raises(TypeError):
-        TK.autocorr(rows.double())
-    with pytest.raises(ValueError):
-        TK.autocorr(rows.transpose(0, -1))
 
 
 def _random_blocks(regime, dev, batch=4, n_blocks=64):

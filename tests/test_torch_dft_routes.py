@@ -308,7 +308,7 @@ def test_framed_stft_equals_fused_on_cpu():
 @pytest.mark.cuda
 def test_cuda_ct_frames_kernel_matches_plain(cuda):
     rng = np.random.default_rng(21)
-    for n, w in ((700, 8192), (70000, 64)):  # the second passes 65,535 rows
+    for n, w in ((700, 8192), (70000, 8192)):  # the second passes 65,535 rows
         frames = torch.as_tensor((rng.normal(size=(n, w)) * 0.1).astype(np.float32), device=cuda)
         got, want = TD.ct_frames_mags(frames), TD.ct_frames_mags_plain(frames)
         assert got.shape == (w // 2 + 1, n)

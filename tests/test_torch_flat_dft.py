@@ -95,7 +95,7 @@ def _comp_add(s, c, p):
 
 
 #: The kernel's six products a k step, in its order (A piece, B piece), and
-#: its bf16x3 control's three (`-DBLISS_FLAT_PRODUCTS=3`).
+#: the three of a bf16x3 control (hh, hm, mh), which the limits must refuse.
 PRODUCTS = {
     6: ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0)),
     3: ((1, 0), (0, 1), (0, 0)),
@@ -221,8 +221,8 @@ def _control_cases():
 @pytest.mark.parametrize("products", [6, 3])
 def test_limits_hold_six_products_and_refuse_bf16x3(case, products):
     """`timbral_flat_held`, the card's limits, on the kernel's arithmetic:
-    they hold six products and refuse the bf16x3 control (hh, hm, mh, as
-    the kernel built with -DBLISS_FLAT_PRODUCTS=3 computes), whose dropped
+    they hold six products and refuse the bf16x3 control (hh, hm, mh: the
+    kernel's products without the three smallest), whose dropped
     terms (~2^-16 relative) leave the sums within their 1e-5 and show only
     in the log2 sum's mean distance to an f64 DFT."""
     sig, n_frames = _control_cases()[case]

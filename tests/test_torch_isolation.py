@@ -239,7 +239,7 @@ def test_every_launch_makes_its_device_current():
     for path in wrappers:
         src = path.read_text()
         assert src.count("_build.function(") == src.count("_build.launch("), path.name
-    assert sum(p.read_text().count("_build.launch(") for p in wrappers) == 12
+    assert sum(p.read_text().count("_build.launch(") for p in wrappers) == 10
 
 
 def test_cuda_path_is_f32_only():
@@ -274,7 +274,7 @@ def test_cuda_path_is_f32_only():
         ("beat_track.cu", "bliss_tpu/models/tempo.py:760 lax.scan (_bt_do/_checkstate)"),
         ("beat_track.cu", "beat_track_launch"),
         ("autocorr.cu", "bliss_tpu/models/tempo.py:236 _autocorr"),
-        ("autocorr.cu", "autocorr_launch"),
+        ("autocorr.cu", "block_inputs_launch"),
         ("autocorr.cu", "Bound on the card: operations"),
     ],
 )
@@ -306,8 +306,8 @@ def test_frame_dft_mags_kernel_is_an_fft():
     flat = (csrc / "timbral_flat.cu").read_text()
     assert "six_products(" in _kernel_body(flat, "timbral_flat_kernel")
     assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in flat
-    assert _device_body(flat, "six_products").count("wgmma_rs(") == 6
-    assert "#define BLISS_FLAT_PRODUCTS 6" in flat  # the bf16x3 control only on request
+    six = _device_body(flat, "six_products")
+    assert six.count("wgmma_rs(") == 6 and "if (" not in six  # every k step takes all six
     assert "accumulate(" not in flat and "timbral_flat" not in text.replace("timbral_flat.cu", "")
     assert "tf32" not in flat.lower()
     note = text[: text.index("#include")]
@@ -337,10 +337,10 @@ def test_strided_frame_kernels_share_the_warp_fft_tile_loop(source, kernel, epil
     instantiations of one staged tile loop (frame_tiles.cuh: cp.async tiles,
     double buffered, a frame a warp), each with its own epilogue and a warp
     body: `warp_rfft512_mags` (8 x 8 x 4) for #7 and #2,
-    `warp_radix2_512_mags` (fft_radix2_dit's arithmetic on a warp) for #1;
-    both round the windowed samples before the first butterfly. None runs the block-wide radix-2 body, which stays
-    for `ct_mags_kernel` alone, and no block barrier sits inside a warp
-    transform. Each note keeps its Pallas kernel and its bound."""
+    `warp_radix2_512_mags` (a block-wide radix-2 FFT's arithmetic on a warp)
+    for #1; both round the windowed samples before the first butterfly. No
+    block barrier sits inside a warp transform. Each note keeps its Pallas
+    kernel and its bound."""
     csrc = REPO / "bliss_tpu_torch" / "csrc"
     text = (csrc / source).read_text()
     assert "bliss::frame_tiles(" in _kernel_body(text, kernel)
@@ -359,7 +359,6 @@ def test_strided_frame_kernels_share_the_warp_fft_tile_loop(source, kernel, epil
     assert "warp_rfft512_mags(" in tiles and "warp_radix2_512_mags(" in tiles
     for fn in ("warp_fft256", "warp_rfft512_mags", "warp_radix2_512_mags"):
         assert "__syncthreads" not in _device_body(common, fn), fn
-    assert "fft_radix2_dit(" in _kernel_body((csrc / "ct_stft.cu").read_text(), "ct_mags_kernel")
     note = " ".join(line.strip("/ ") for line in text[: text.index("#include")].splitlines())
     assert "Bound on the card" in note and "frame_tiles.cuh" in note
     assert "Replaces the TPU kernel" in note or "replaces the TPU kernel" in note
@@ -367,17 +366,15 @@ def test_strided_frame_kernels_share_the_warp_fft_tile_loop(source, kernel, epil
 
 
 def test_ct_stft_8192_body_is_a_block_fft():
-    """At 8192 points both CT entries run `ct8192_kernel`: radix-16 passes
-    (`dft16`) ending in the shared `last_pass`, no radix-2 stage; the
-    radix-2 body stays for the other widths. The note names both Pallas
-    kernels, the bound and the design; the warp core of `frame_dft_mags`
-    is the factored `warp_fft256`."""
+    """Both CT entries run `ct8192_kernel`, the source's one kernel:
+    radix-16 passes (`dft16`) ending in `last_pass`, no radix-2 stage. The
+    note names both Pallas kernels, the bound and the design; the warp core
+    of `frame_dft_mags` is the factored `warp_fft256`."""
     csrc = REPO / "bliss_tpu_torch" / "csrc"
     text = (csrc / "ct_stft.cu").read_text()
     body = _kernel_body(text, "ct8192_kernel")
     assert body.count("bliss::dft16(") >= 2 and "last_pass(" in body
-    assert "fft_radix2_dit" not in body
-    assert "fft_radix2_dit(" in _kernel_body(text, "ct_mags_kernel")
+    assert "fft_radix2_dit" not in body and text.count("__global__") == 1
     note = text[: text.index("#include")]
     for phrase in ("_make_ct_fused_kernel", "_make_ct_kernel", "Bound on the card: bytes",
                    "671 MB", "16 x 16 x 16", "INTEGER phase"):
@@ -390,13 +387,13 @@ def test_ct_stft_8192_body_is_a_block_fft():
 
 
 def test_radix_counting_pass_is_one_template_with_two_loaders():
-    """`bisect8` and `bisect8_keys` share one counting kernel; the key entry
-    has its own C entry point and scan."""
+    """`bisect8_keys`' counting kernel reads the mask and values through its
+    one key loader; the entry has its own C entry point and scan."""
     text = (REPO / "bliss_tpu_torch" / "csrc" / "tuning.cu").read_text()
-    assert "template <class Loader>" in text
-    for name in ("struct PlaneLoader", "struct KeyLoader", "count8_kernel<PlaneLoader>",
-                 "count8_kernel<KeyLoader>", "select8_pair_kernel", 'extern "C" int bisect8_keys_launch'):
+    for name in ("struct KeyLoader", "count8_kernel(KeyLoader loader", "select8_pair_kernel",
+                 'extern "C" int bisect8_keys_launch'):
         assert name in text, name
+    assert text.count("Loader {") == 1 and "template <class Loader>" not in text
     assert "cub/" not in text and "thrust" not in text
 
 
@@ -428,8 +425,7 @@ def test_tempo_block_inputs_have_no_toeplitz_gather():
     body = _device_body(cu, "lag_group")
     assert body.count("__fmaf_rn(") == 2 and "__fdiv_rn(" in body and "kPartials = 8" in cu
     assert body.count("load8(") == 4 and "kGroup = 4" in cu
-    assert "row_autocorr(" in _kernel_body(cu, "block_inputs_kernel")
-    assert "row_autocorr(" in _kernel_body(cu, "autocorr_kernel")
+    assert "row_autocorr(" in _kernel_body(cu, "block_inputs_kernel") and cu.count("__global__") == 1
 
 
 def test_beat_track_step_design():
@@ -449,6 +445,41 @@ def test_every_kernel_source_is_built():
     from bliss_tpu_torch.ops import _build
 
     assert sorted(_build.SOURCES) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+
+
+CSRC = REPO / "bliss_tpu_torch" / "csrc"
+KERNEL_SOURCES = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+@pytest.mark.parametrize("path", KERNEL_SOURCES, ids=lambda p: p.name)
+def test_kernel_sources_build_one_way(path):
+    """A kernel source builds the one way the package builds it: no
+    preprocessor conditional on a `BLISS_` name that a `-D` could set, and
+    no `-D` among the build's flags."""
+    from bliss_tpu_torch.ops import _build
+
+    conditionals = re.findall(r"^\s*#\s*(?:if|ifdef|ifndef|elif)\b.*$", path.read_text(), re.M)
+    assert not [c for c in conditionals if "BLISS_" in c], conditionals
+    assert not [f for f in _build.NVCC_FLAGS if f.startswith("-D")]
+
+
+C_ENTRIES = sorted(
+    (path.name, name)
+    for path in sorted(CSRC.glob("*.cu"))
+    for name in re.findall(r'extern "C" int (\w+)\(', path.read_text())
+)
+
+
+@pytest.mark.parametrize("source,entry", C_ENTRIES, ids=[e for _, e in C_ENTRIES])
+def test_every_entry_point_has_a_wrapper(source, entry):
+    """Every C entry of `csrc/` is looked up by a wrapper under `ops/`, by
+    its source and name: `_build.function("<source>", "<entry>", ...)`, or
+    `_launch_frames("<source>", "<entry>", ...)`, which makes that call. The
+    sources hold no entry that no path launches."""
+    wrappers = "".join(p.read_text() for p in sorted((REPO / "bliss_tpu_torch" / "ops").glob("*.py")))
+    calls = re.findall(r'(_build\.function|_launch_frames)\(\s*"(\w+)",\s*"' + entry + '"', wrappers)
+    assert calls, f"{source}: no wrapper looks up {entry}"
+    assert {lib for _, lib in calls} == {source[: -len(".cu")]}, calls
 
 
 def _run_smoke(cwd: pathlib.Path):

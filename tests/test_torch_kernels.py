@@ -121,14 +121,16 @@ def test_ct_plain_matches_jax_stft():
     assert np.abs(got - want).max() / want.max() < 1e-5
 
 
-def _radix2_emulated(re, im, log2n, tw, tw_scale):
-    """numpy f32 copy of csrc/fft_common.cuh:fft_radix2_dit's index and
-    butterfly arithmetic, over the last axis (every row at once)."""
+def _radix2_emulated(re, im, log2n, tw):
+    """numpy f32 copy of a block-wide radix-2 decimation-in-time FFT's index
+    and butterfly arithmetic (input in bit-reversed order), over the last
+    axis (every row at once): the arithmetic that
+    csrc/fft_common.cuh:warp_radix2_512_mags keeps on a warp's schedule."""
     half_n = 1 << (log2n - 1)
     t = np.arange(half_n)
     for s in range(1, log2n + 1):
         half = 1 << (s - 1)
-        stride = (half_n >> (s - 1)) * tw_scale
+        stride = half_n >> (s - 1)
         pos = t & (half - 1)
         i = ((t >> (s - 1)) << s) | pos
         j = i + half
@@ -257,11 +259,10 @@ def _chroma_frames(n_frames=40):
 
 def test_kernel_fft_arithmetic_emulated():
     """The kernels' FFT structure, emulated in numpy f32 on frames of a
-    synthetic song: the block-wide radix-2 body of csrc/fft_common.cuh
-    (fft_radix2_dit) as a 512-point complex FFT of real frames, and as
-    csrc/ct_stft.cu runs it for widths below 8192 (2048 here: a complex FFT
-    of half size + even/odd split), and the 8192-point body (16 x 16 x 16),
-    each within 1e-6 of the frame's max of an f64 FFT; and the geometric
+    synthetic song: the block-wide radix-2 arithmetic that
+    csrc/fft_common.cuh:warp_radix2_512_mags keeps, as a 512-point complex
+    FFT of real frames, and the 8192-point body (16 x 16 x 16), each within
+    1e-6 of the frame's max of an f64 FFT; and the geometric
     mean of the 512-point magnitudes (the flatness ingredient) no farther
     from f64 than torch's f32 FFT, within 2x (the same f32 noise class).
     The warp body of the 512-point kernels: tests/test_torch_warp_fft.py."""
@@ -274,7 +275,7 @@ def test_kernel_fft_arithmetic_emulated():
     frames = np.lib.stride_tricks.sliding_window_view(x, 512)[::128][:2000]
     fr = (frames * _hann_np(512)).astype(np.float32)
     rev = _bit_reverse(9)
-    re, im = _radix2_emulated(fr[:, rev].copy(), np.zeros_like(fr), 9, twiddles(512), 1)
+    re, im = _radix2_emulated(fr[:, rev].copy(), np.zeros_like(fr), 9, twiddles(512))
     emu = np.sqrt(re * re + im * im)[:, :257].astype(np.float64)
     exact = np.abs(np.fft.rfft(fr.astype(np.float64), axis=-1))
     assert (np.abs(emu - exact).max(1) / exact.max(1)).max() < 1e-6
@@ -284,26 +285,6 @@ def test_kernel_fft_arithmetic_emulated():
         return np.abs(np.log2(m).mean(1) - np.log2(exact).mean(1)) * np.log(2)
 
     assert geo_err(emu).max() <= 2 * geo_err(f32).max() + 1e-7
-    # 2048: ct_stft.cu's radix-2 body, packed real -> complex half size + split
-    w = 2048
-    frames = np.lib.stride_tricks.sliding_window_view(x, w)[::512][:200]
-    fr = (frames * _hann_np(w)).astype(np.float32)
-    tw = twiddles(w)
-    rev = _bit_reverse(10)
-    re, im = _radix2_emulated(
-        fr[:, 0::2][:, rev].copy(), fr[:, 1::2][:, rev].copy(), 10, tw, 2
-    )
-    m = w // 2
-    k = np.arange(m + 1)
-    a, b = k & (m - 1), (m - k) & (m - 1)
-    ar, ai, br, bi = re[:, a], im[:, a], re[:, b], im[:, b]
-    er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
-    o_r, o_i = 0.5 * (ai + bi), -0.5 * (ar - br)
-    xr = er + (tw[0] * o_r - tw[1] * o_i)
-    xi = ei + (tw[0] * o_i + tw[1] * o_r)
-    emu = np.sqrt(xr * xr + xi * xi).astype(np.float64)
-    exact = np.abs(np.fft.rfft(fr.astype(np.float64), axis=-1))
-    assert (np.abs(emu - exact).max(1) / exact.max(1)).max() < 1e-6
     # 8192: the chroma transform, ct8192_kernel's 16 x 16 x 16 body
     _, fr = _chroma_frames()
     emu = _ct8192_emulated(fr, twiddles(8192)).astype(np.float64)
@@ -490,31 +471,35 @@ def test_cuda_ct_kernel_matches_plain(cuda):
     of each frame's max: B = 2 and B = 3 (an odd length, 1,350 frames: no
     multiple of the card's resident blocks), frames past the end of the
     signal (zeros; through the C entry, the wrapper refuses them), N = 1 and
-    a ragged N of pre-framed rows, rows at a 4-byte offset, and the widths
-    2048 and 4096 of the radix-2 body."""
+    a ragged N of pre-framed rows, rows at a 4-byte offset, hops 2205 and
+    512; a width other than 8192 is refused."""
     rng = np.random.default_rng(12)
     for shape in ((2, 120000), (3, 1_000_003)):
         padded = torch.as_tensor((rng.normal(size=shape) * 0.1).astype(np.float32), device=cuda)
-        for w, hop in ((8192, 2205), (2048, 512)):
+        for w, hop in ((8192, 2205), (8192, 512)):
             nf = (padded.shape[1] - w) // hop + 1
             got = TD.ct_stft_mags(padded, w, hop, nf)
             want = TD.ct_stft_mags_plain(padded, w, hop, nf)
             assert _frame_rel(got, want, 1) < 1e-5
+    with pytest.raises(ValueError, match="8192 only"):
+        TD.ct_stft_mags(padded, 2048, 512, 10)
     w, hop = 8192, 2205
     nf = (padded.shape[1] - w) // hop + 5
     win, tw = TD._constants(w, str(padded.device))
     out = torch.empty((3, nf, w // 2 + 1), device=cuda)
-    fn = _build.function("ct_stft", "ct_stft_launch", TD._FRAME_ARGS)
+    fn = _build.function("ct_stft", "ct_stft_launch", TD._CT_ARGS)
     _build.launch(
-        "ct_stft", fn, padded.device, _build.ptr(padded), 3, padded.shape[1], nf, hop, 13,
+        "ct_stft", fn, padded.device, _build.ptr(padded), 3, padded.shape[1], nf, hop,
         _build.ptr(win), _build.ptr(tw[0]), _build.ptr(tw[1]), _build.ptr(out))
     ext = torch.nn.functional.pad(padded, (0, (nf - 1) * hop + w - padded.shape[1]))
     assert _frame_rel(out.transpose(1, 2), TD.ct_stft_mags_plain(ext, w, hop, nf), 1) < 1e-5
-    for n, width, offset in ((1, 8192, 0), (1001, 8192, 0), (257, 8192, 1), (300, 4096, 0)):
+    for n, width, offset in ((1, 8192, 0), (1001, 8192, 0), (257, 8192, 1)):
         flat = torch.as_tensor((rng.normal(size=n * width + offset) * 0.1).astype(np.float32), device=cuda)
         frames = flat[offset:].view(n, width)
         got, want = TD.ct_frames_mags(frames), TD.ct_frames_mags_plain(frames)
         assert _frame_rel(got, want, 0) < 1e-5
+    with pytest.raises(ValueError, match="8192 only"):
+        TD.ct_frames_mags(torch.zeros((300, 4096), device=cuda))
 
 
 @pytest.mark.cuda

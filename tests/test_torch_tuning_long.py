@@ -1,6 +1,7 @@
 """The unfused tuning route of the port (long buckets) against the JAX
-package: `bisect8`, `histogram_int_plane`, the byte-radix median and the
-unfused estimator, exactly, plus the route gate.
+package: `bisect8_plain` (the contract of one radix level),
+`histogram_int_plane`, the byte-radix median and the unfused estimator,
+exactly, plus the route gate.
 
 On the CPU the wrappers run their plain PyTorch versions; the Pallas
 kernels run as tests/test_pallas.py runs them (`interpret=True`, or TPU
@@ -70,7 +71,7 @@ def test_bisect8_matches_pallas_interpret(shape, density, top_share):
     n = int((plane != 127).sum())
     for k in sorted({0, max(n - 1, 0), n // 2, n, n + 7}):
         want = _j_bisect8(plane, k)
-        got = TT.bisect8(_t(plane)[None], torch.tensor([k], dtype=torch.int32))
+        got = TT.bisect8_plain(_t(plane)[None], torch.tensor([k], dtype=torch.int32))
         assert got[0].tolist() == want, (k, n)
 
 
@@ -80,7 +81,7 @@ def test_bisect8_sentinel_rule():
     a = np.array([3, 5, 255, 255, 255], np.int64) - 128
     b = np.array([0, 0, 254, 7, 255], np.int64) - 128
     plane = _t(np.stack([a, b]).astype(np.int8))
-    got = TT.bisect8(plane, torch.tensor([2, 2], dtype=torch.int32))
+    got = TT.bisect8_plain(plane, torch.tensor([2, 2], dtype=torch.int32))
     assert got.tolist() == [[255, 2], [7, 2]]
     assert got[0].tolist() == _j_bisect8(a.astype(np.int8).reshape(1, -1), 2)
     assert got[1].tolist() == _j_bisect8(b.astype(np.int8).reshape(1, -1), 2)
@@ -258,7 +259,6 @@ def test_route_gate_matches_reference_budget():
 
 def test_wrappers_on_cpu_launch_nothing():
     _build.reset_launches()
-    TT.bisect8(torch.zeros((1, 10), dtype=torch.int8), torch.zeros(1, dtype=torch.int32))
     TT.histogram_int_plane(torch.zeros((1, 10), dtype=torch.int32), 100)
     assert _build.LAUNCHES == {}
     with pytest.raises(ValueError):
@@ -273,11 +273,6 @@ def test_wrappers_on_cpu_launch_nothing():
 @pytest.mark.cuda
 def test_cuda_long_route_kernels_exact(cuda):
     rng = np.random.default_rng(21)
-    plane = torch.as_tensor(_byte_plane(rng, (4, 900, 1400), 0.05, 0.01), device=cuda)
-    n = (plane != 127).flatten(1).sum(1).to(torch.int32)
-    for k in (torch.zeros_like(n), n // 2, torch.clamp(n - 1, min=0), n + 3):
-        k = k.contiguous()
-        assert torch.equal(TT.bisect8(plane, k), TT.bisect8_plain(plane, k))
     idx = torch.as_tensor(rng.integers(-3, 104, (4, 900, 1400)).astype(np.int32), device=cuda)
     assert torch.equal(TT.histogram_int_plane(idx, 100), TT.histogram_int_plane_plain(idx, 100))
     values = torch.as_tensor(_values(rng, (4, 300, 500)), device=cuda)

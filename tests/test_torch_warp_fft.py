@@ -3,7 +3,7 @@
 `csrc/fft_common.cuh:warp_rfft512_mags` (a 512-point real FFT by one warp:
 the 256-point complex FFT `warp_fft256`, 8 x 8 x 4, then the real-input
 untangling) carries `frame_dft_mags` (#7) and `specflux` (#2), and
-`warp_radix2_512_mags` (fft_radix2_dit's arithmetic on one warp) carries
+`warp_radix2_512_mags` (a block-wide radix-2 FFT's arithmetic on one warp) carries
 `timbral_fft` (#1), through the staged tile loop of `csrc/frame_tiles.cuh`.
 The windowed samples are rounded to f32 before the first butterfly, as the
 card rounds them in both bodies.
@@ -164,7 +164,7 @@ def _rev(v, bits):
 
 
 def _butterfly(ir, ii, jr, ji, wr, wi):
-    """fft_common.cuh:radix2_butterfly (fft_radix2_dit's): i + w j, i - w j."""
+    """fft_common.cuh:radix2_butterfly: i + w j, i - w j."""
     xr = jr * wr - ji * wi
     xi = jr * wi + ji * wr
     return ir + xr, ii + xi, ir - xr, ii - xi
@@ -230,12 +230,12 @@ def warp_radix2_512_mags(sig):
 
 
 def _radix2_reference(sig):
-    """fft_radix2_dit at 512 points, block-wide (tests/test_torch_kernels.py's
+    """The block-wide radix-2 FFT at 512 points (tests/test_torch_kernels.py's
     copy): `[..., 257]` magnitudes."""
     from test_torch_kernels import _bit_reverse, _radix2_emulated
 
     xw = (sig.astype(F32) * HANN).reshape(-1, 512)
-    re, im = _radix2_emulated(xw[:, _bit_reverse(9)].copy(), np.zeros_like(xw), 9, TW, 1)
+    re, im = _radix2_emulated(xw[:, _bit_reverse(9)].copy(), np.zeros_like(xw), 9, TW)
     return np.sqrt(re * re + im * im)[:, :257].reshape(sig.shape[:-1] + (257,))
 
 
@@ -471,7 +471,7 @@ def test_warp_rfft512_body_emulated_against_f64_and_torch():
 
 
 def test_warp_radix2_body_emulated_equals_the_block_radix2():
-    """The warp schedule of fft_radix2_dit's arithmetic (its two padded
+    """The warp schedule of the block-wide radix-2 arithmetic (its two padded
     transposes, the lane ^ 16 exchange of stage 9, lane 0's Nyquist bin)
     gives the block-wide body's magnitudes bit for bit, on the song's frames
     and on the quiet, silent and notched ones."""
